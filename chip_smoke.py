@@ -9,19 +9,28 @@ built at first use).  Phases, each of which raises on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc the kernels, print the build time and ptxas register use;
   3. kernel vs plain PyTorch version on the card, at the shapes of the main
-     path: FPS, kNN and ball-query indices must be equal, the inter-conv
+     paths: FPS, kNN and ball-query indices must be equal, the f32 inter-conv
      contraction and occupancy conv within 1e-5 * max|t| (f32 sums in
-     another order); kernel and plain times side by side;
+     another order); the bf16 kernels (contraction on bf16 rows, occupancy
+     conv with its projection, direction core, vector attention, grouped
+     head) within 1e-2 * max|plain| at every element with a median relative
+     error |diff| / (|plain| + 1e-2) <= 1e-3 (the same rounding points,
+     another summation order); kernel and plain times side by side;
   4. small-input reference: the serving step at tiny widths on the card
-     (kernels) against the same weights on the CPU (plain versions): equal
-     part labels, confidences within 1e-4 * (1 + max), markers within 1e-3,
-     vectors and inner points within 1e-4 * (1 + max) for 99% of the values
-     and 1e-2 for all (the direction head's chordal mean is ill-conditioned
-     at random weights);
-  5. main path: `build_pipeline(EtchConfig(num_point=5000, batch_size=8))`
-     with random weights and the synthetic body, `run_batch` on capsule
-     clouds: one warm request, then timed requests; every kernel's launch
-     counter must rise during them; then a B=1 request's latency.
+     (kernels) against the same weights on the CPU (plain versions).  f32:
+     equal part labels, confidences within 1e-4 * (1 + max), markers within
+     1e-3, vectors and inner points within 1e-4 * (1 + max) for 99% of the
+     values and 1e-2 for all (the direction head's chordal mean is
+     ill-conditioned at random weights).  bf16 (two direction layers, so the
+     direction-core kernel runs): part labels equal for 98% of the points,
+     confidences and vector lengths (magnitude / 10) within a median
+     relative error of 1e-2 and 2e-2 * (1 + max) for all, finite outputs;
+  5. main paths: `build_pipeline(EtchConfig(num_point=5000, batch_size=8,
+     use_bfloat16=...))` with random weights and the synthetic body,
+     `run_batch` on capsule clouds, bf16 (the configuration bench.py times)
+     and f32: one warm request, the network's stage times, then timed
+     requests; every kernel of the path's own set must have launched during
+     them and no other; then a B=1 request's latency.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -42,6 +51,27 @@ B, N = 8, 5000
 TIMED_REQUESTS = 3
 MARKERSET = {f"M{i}": int(v) for i, v in enumerate(np.linspace(0, 6889, 86).astype(int))}
 INTERCONV_RTOL = 1e-5   # max |kernel - plain| <= 1e-5 * max |plain|
+BF16_ATOL = 1e-2        # bf16 kernels: max |kernel - plain| <= 1e-2 * max |plain|
+BF16_MEDIAN_REL = 1e-3  # and median |kernel - plain| / (|plain| + 1e-2) <= 1e-3
+# the kernels each serving path launches (and no others)
+PATH_KERNELS = {
+    "f32": ("fps", "knn", "ball_query", "interconv_ones", "interconv_t"),
+    "bf16": ("fps", "knn", "ball_query", "interconv_ones_proj", "interconv_t_bf16",
+             "dircore", "vector_attention", "grouped_head"),
+}
+SOURCES = {  # kernel -> (source under etch_tpu_torch/csrc, the TPU kernel it replaces)
+    "fps": ("fps.cu", "etch_tpu/ops/pallas_fps.py:71"),
+    "knn": ("knn.cu", "etch_tpu/ops/pallas_knn.py:82"),
+    "ball_query": ("knn.cu", "etch_tpu/ops/pallas_knn.py:169"),
+    "interconv_ones": ("interconv.cu", "etch_tpu/nn/pallas_interconv.py:149"),
+    "interconv_t": ("interconv.cu", "etch_tpu/nn/pallas_interconv.py:115"),
+    "interconv_ones_proj": ("interconv.cu", "etch_tpu/nn/pallas_interconv.py:160"),
+    "interconv_t_bf16": ("interconv.cu", "etch_tpu/nn/pallas_interconv.py:115"),
+    "dircore": ("dircore.cu", "etch_tpu/nn/pallas_dircore.py:153"),
+    "vector_attention": ("vector_attention.cu",
+                         "etch_tpu/nn/pallas_vector_attention.py:109"),
+    "grouped_head": ("grouped_head.cu", "etch_tpu/nn/pallas_grouped_head.py:61"),
+}
 
 
 def capsule_clouds(batch, n, seed=0):
@@ -84,7 +114,7 @@ def compare_kernels(torch, dev):
     results = {}
 
     def record(kernel, shape, err, ms, plain_ms):
-        print(f"  {kernel:15s} {shape:34s} max_abs_err {err:.3g}  kernel {ms:.3f} ms"
+        print(f"  {kernel:19s} {shape:34s} max_abs_err {err:.3g}  kernel {ms:.3f} ms"
               f"  plain {plain_ms:.3f} ms")
         prev = results.get(kernel)
         if prev is None:
@@ -145,6 +175,19 @@ def compare_kernels(torch, dev):
                                  f"{INTERCONV_RTOL} * {scale}")
         record(kernel, label, err, cuda_ms(torch, fn, 5), cuda_ms(torch, plain_fn, 1))
 
+    def check_bf16(kernel, label, fn, plain_fn):
+        out, ref = fn().float(), plain_fn().float()
+        err = (out - ref).abs()
+        worst, scale = err.max().item(), ref.abs().max().item()
+        rel = (err / (ref.abs() + 1e-2)).flatten()
+        rel = rel[::max(1, rel.numel() >> 24)]      # a strided sample of <= 16 M values
+        med = rel.median().item()
+        del out, ref, err, rel
+        if not (worst <= BF16_ATOL * scale and med <= BF16_MEDIAN_REL):
+            raise AssertionError(f"{kernel} {label}: max abs err {worst} (limit "
+                                 f"{BF16_ATOL} * {scale}), median rel err {med}")
+        record(kernel, label, worst, cuda_ms(torch, fn, 5), cuda_ms(torch, plain_fn, 1))
+
     # occupancy conv of conv0: one 512-center chunk of the 2500 FPS centers
     ctr, nbr = q2500[:, :512].contiguous(), nbr0[:, :512].contiguous()
     rk, sg = rk_of(conv0), conv0["sigma"]
@@ -168,11 +211,93 @@ def compare_kernels(torch, dev):
               lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60))
         del feats
     torch.cuda.empty_cache()
+    compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, check_bf16)
+    torch.cuda.empty_cache()
     return results
 
 
+def compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, check):
+    """Phase 3, the bf16 path's kernels at its main-path shapes, on random
+    weights of the reference widths."""
+    from etch_tpu_torch.nn import dircore, grouped_head, interconv, vector_attention
+    from etch_tpu_torch.nn.point_transformer import unet_geometry
+    from etch_tpu_torch.ops import ball_query
+    from etch_tpu_torch.utils.config import EtchConfig, backbone_plan
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, device=dev, generator=gen) * scale
+
+    # occupancy conv of conv0 with its (K=24 -> 32) projection
+    ctr, nbr = q2500[:, :512].contiguous(), nbr0[:, :512].contiguous()
+    rk, sg, ns = rk_of(conv0), conv0["sigma"], conv0["n_neighbor"]
+    w = randn(24, conv0["dim_out"], scale=(6 / (24 + conv0["dim_out"])) ** 0.5)
+    check("interconv_ones_proj", f"B={B} P={N} c=512 nn={ns} Co={w.shape[1]}",
+          lambda: interconv.interconv_ones_proj_cuda(xyz, ctr, nbr, rk, sg, 60, w),
+          lambda: interconv.interconv_ones_proj_torch(xyz, ctr, nbr, rk, sg, 60, w))
+
+    # contraction on bf16 feature rows (conv1, conv3)
+    plan = backbone_plan(EtchConfig(num_point=N, batch_size=B))
+    for spec, pts in ((plan[0][1], q2500), (plan[1][1], centers[1250])):
+        C = spec["dim_in"]
+        feats = randn(B, pts.shape[1], 60 * C).to(bf)
+        ctr = pts[:, :512].contiguous()
+        nbr = ball_query(ctr, pts, spec["radius"], spec["n_neighbor"])
+        rk, sg = rk_of(spec), spec["sigma"]
+        check("interconv_t_bf16",
+              f"B={B} P={pts.shape[1]} c=512 nn={spec['n_neighbor']} C={C}",
+              lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
+              lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60))
+        del feats
+
+    # direction core: every point's (60, 64) tokens, 8 heads, V=128
+    E, V, H = 64, 128, 8
+    params = {}
+    for l in (0, 1):
+        for nm in ("wq", "wk", "wv"):
+            params[f"{nm}{l}"] = randn(E, E, scale=E ** -0.5)
+    params.update(wc0=randn(E, E, scale=E ** -0.5), bc0=randn(E, scale=0.1),
+                  wc1=randn(E, V, scale=E ** -0.5), bc1=randn(V, scale=0.1),
+                  wm0=randn(V, V, scale=V ** -0.5), bm0=randn(V, scale=0.1),
+                  wm1=randn(V, V, scale=V ** -0.5), bm1=randn(V, scale=0.1),
+                  wr=randn(V, 1, scale=V ** -0.5), br=randn(1, scale=0.1))
+    tokens = randn(B * N, 60, E).to(bf)
+    check("dircore", f"M={B * N} A=60 E={E} H={H} V={V}",
+          lambda: dircore.direction_core_cuda(tokens, params, H),
+          lambda: torch.cat([dircore.direction_core_torch(tokens[s:s + 2048], params, H)
+                             for s in range(0, B * N, 2048)]))
+    del tokens
+
+    # vector attention at each U-Net level's shape (both heads' widths at level 0)
+    xyz5 = xyz.contiguous()
+    geom = unet_geometry(xyz5, (1, 4, 4, 4, 4), (8, 16, 16, 16, 16))
+    for lvl, c in ((0, 64), (0, 128), (1, 128), (2, 256), (3, 256), (4, 512)):
+        idx = geom[lvl]["self"]
+        Bl, Nl, nsl = idx.shape
+        cs = c // 8
+        args = (randn(Bl * Nl, c).to(bf), randn(Bl, Nl, c).to(bf), randn(Bl, Nl, c).to(bf),
+                idx, randn(Bl * Nl, nsl, c).to(bf),
+                torch.stack([randn(c).abs() + 0.5, randn(c)]), randn(c, cs, scale=c ** -0.5),
+                torch.stack([randn(cs).abs() + 0.5, randn(cs)]),
+                randn(cs, cs, scale=cs ** -0.5), randn(cs))
+        check("vector_attention", f"R={Bl * Nl} ns={nsl} c={c}",
+              lambda: vector_attention.vector_attention_cuda(*args),
+              lambda: vector_attention.vector_attention_torch(*args))
+
+    # grouped confidence head: c0=128, k=86 parts
+    c0, k = 128, 86
+    gargs = (randn(B * N, c0).to(bf), randn(c0, k * c0, scale=c0 ** -0.5),
+             randn(k * c0, scale=0.1), randn(k, c0, scale=(6 / (k + c0)) ** 0.5),
+             randn(k, scale=0.1))
+    check("grouped_head", f"R={B * N} c0={c0} k={k}",
+          lambda: grouped_head.grouped_head_cuda(*gargs),
+          lambda: grouped_head.grouped_head_torch(*gargs))
+
+
 def check_small_reference(torch):
-    """Phase 4: tiny-width serving step, kernels on the card vs plain
+    """Phase 4, f32: tiny-width serving step, kernels on the card vs plain
     versions on the CPU, same weights and inputs."""
     from etch_tpu_torch.pipeline import build_pipeline
     from etch_tpu_torch.utils.config import EtchConfig
@@ -197,8 +322,48 @@ def check_small_reference(torch):
             ok = worst[key] <= (1e-3 if key == "markers" else bound)
         if not ok:
             raise AssertionError(f"small reference: {key} differs by {worst[key]}")
-    print("small reference (B=2, N=512, tiny widths), card vs CPU max abs err:",
+    print("small reference f32 (B=2, N=512, tiny widths), card vs CPU max abs err:",
           json.dumps(worst))
+
+
+def check_small_reference_bf16(torch):
+    """Phase 4, bf16: the same step with use_bfloat16 and two direction
+    layers (so the direction-core kernel runs), card vs CPU.  Rounding to
+    bf16 at the same points in another summation order flips a rounding now
+    and then, and the flips travel through the network: the comparison
+    allows them, and checks vector lengths (magnitude / 10) rather than
+    vectors, whose directions are ill-conditioned at random weights."""
+    from etch_tpu_torch import _build
+    from etch_tpu_torch.pipeline import build_pipeline
+    from etch_tpu_torch.utils.config import EtchConfig
+
+    cfg = EtchConfig.tiny(num_point=512, batch_size=2, use_bfloat16=True, dir_num_layers=2)
+    pts = capsule_clouds(2, 512, seed=3)
+    _build.reset_launch_counts()
+    gpu = build_pipeline(cfg, MARKERSET, allow_synthetic_body=True, rng_seed=0,
+                         device="cuda").run_batch(pts)
+    ran = {k for k, v in _build.launches.items() if v}
+    if ran != set(PATH_KERNELS["bf16"]):
+        raise AssertionError(f"small reference bf16: kernels launched {sorted(ran)}")
+    cpu = build_pipeline(cfg, MARKERSET, allow_synthetic_body=True, rng_seed=0,
+                         device="cpu").run_batch(pts)
+    agree = (gpu["part_labels"].cpu() == cpu["part_labels"]).float().mean().item()
+    report = {"part_label_agreement": agree}
+    for key, a, b in (("confidences", gpu["confidences"].cpu(), cpu["confidences"]),
+                      ("vector_length", gpu["vectors"].cpu().norm(dim=-1),
+                       cpu["vectors"].norm(dim=-1))):
+        err = (a - b).abs()
+        med = (err / (b.abs() + 1e-2)).median().item()
+        report[key] = {"median_rel": med, "max_abs": err.max().item()}
+        if not (med <= 1e-2 and err.max().item() <= 2e-2 * (1 + b.abs().max().item())):
+            raise AssertionError(f"small reference bf16: {key} {report[key]}")
+    for key in ("vectors", "inner_points", "markers", "verts", "joints"):
+        if not torch.isfinite(gpu[key]).all():
+            raise AssertionError(f"small reference bf16: {key} not finite")
+    if agree < 0.98:
+        raise AssertionError(f"small reference bf16: part labels agree on {agree:.4f}")
+    print("small reference bf16 (B=2, N=512, tiny widths, 2 direction layers), "
+          "card vs CPU:", json.dumps(report))
 
 
 def run_requests(torch, pipe, pts, n):
@@ -212,6 +377,92 @@ def run_requests(torch, pipe, pts, n):
     return out, times
 
 
+def stage_times(torch, pipe, pts):
+    """Device time of the network's stages in one run_batch (CUDA events
+    recorded by forward hooks on each head and the encoder; "forward" is the
+    whole network, "rest" the run_batch time outside it: markers, LM fit,
+    SMPL forward)."""
+    model = pipe.model
+    events, hooks = {}, []
+    for name in ("encoder", "confidence_encoder", "direction_head", "magnitude_encoder", ""):
+        mod = model.get_submodule(name) if name else model
+        label = name or "forward"
+
+        def pre(_m, _i, label=label):
+            events[label] = [torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True)]
+            events[label][0].record()
+
+        def post(_m, _i, _o, label=label):
+            events[label][1].record()
+
+        hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+    t0 = time.perf_counter()
+    pipe.run_batch(pts)
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    for h in hooks:
+        h.remove()
+    ms = {k: round(a.elapsed_time(b), 2) for k, (a, b) in events.items()}
+    ms["rest"] = round(total - ms["forward"], 2)
+    return ms
+
+
+def main_path(torch, _build, dtype):
+    """Phase 5 for one serving path: returns the launch counts of its timed
+    requests."""
+    from etch_tpu_torch.pipeline import build_pipeline
+    from etch_tpu_torch.utils.config import EtchConfig
+
+    bf16 = dtype == "bf16"
+    t0 = time.perf_counter()
+    pipe = build_pipeline(EtchConfig(num_point=N, batch_size=B, use_bfloat16=bf16),
+                          MARKERSET, allow_synthetic_body=True, rng_seed=0, device="cuda")
+    # vector-attention layers per request: two U-Nets whose level l runs
+    # blocks[l] - 1 encoder blocks and one decoder block (36 at full depth)
+    va_layers = 2 * sum(pipe.cfg.unet_blocks)
+    pts = capsule_clouds(B, N)
+    print(f"build_pipeline {dtype}: {time.perf_counter() - t0:.1f} s")
+    _, warm = run_requests(torch, pipe, pts, 1)
+    print(f"stage ms B={B} {dtype}: {json.dumps(stage_times(torch, pipe, pts))}")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    out, times = run_requests(torch, pipe, pts, TIMED_REQUESTS)
+    launches = dict(_build.launches)
+    print(f"launches during {TIMED_REQUESTS} {dtype} requests: {json.dumps(launches)}")
+    ran = {k for k, v in launches.items() if v}
+    if ran != set(PATH_KERNELS[dtype]):
+        raise AssertionError(f"{dtype} main path: kernels launched {sorted(ran)}, "
+                             f"expected {sorted(PATH_KERNELS[dtype])}")
+    if bf16 and launches["vector_attention"] != va_layers * TIMED_REQUESTS:
+        raise AssertionError(f"vector_attention launched {launches['vector_attention']} "
+                             f"times in {TIMED_REQUESTS} requests")
+    shapes = {"vectors": (B, N, 3), "inner_points": (B, N, 3), "part_labels": (B, N),
+              "confidences": (B, N, 1), "markers": (B, 86, 3), "markers_valid": (B, 86),
+              "verts": (B, 6890, 3), "joints": (B, 45, 3)}
+    for key, shape in shapes.items():
+        if tuple(out[key].shape) != shape:
+            raise AssertionError(f"{key}: shape {tuple(out[key].shape)} != {shape}")
+    for key in ("vectors", "confidences", "markers", "verts", "joints"):
+        if not torch.isfinite(out[key]).all():
+            raise AssertionError(f"{dtype} {key}: non-finite values")
+    med = statistics.median(times)
+    print(f"run_batch B={B} N={N} {dtype}: warm {warm[0]:.1f} ms, timed ms "
+          f"{[round(t, 2) for t in times]}, median {med:.2f} ms/batch, "
+          f"{B * 1e3 / med:.2f} scans/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del pipe, out
+    torch.cuda.empty_cache()
+
+    pipe1 = build_pipeline(EtchConfig(num_point=N, batch_size=1, use_bfloat16=bf16),
+                           MARKERSET, allow_synthetic_body=True, rng_seed=0, device="cuda")
+    run_requests(torch, pipe1, pts[:1], 1)
+    _, times1 = run_requests(torch, pipe1, pts[:1], TIMED_REQUESTS)
+    print(f"run_batch B=1 {dtype} latency: ms {[round(t, 2) for t in times1]}, median "
+          f"{statistics.median(times1):.2f} ms")
+    return launches
+
+
 def main():
     import torch
 
@@ -219,8 +470,6 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
     from etch_tpu_torch import _build
-    from etch_tpu_torch.pipeline import build_pipeline
-    from etch_tpu_torch.utils.config import EtchConfig
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -247,52 +496,17 @@ def main():
 
     # 4. small-input reference
     check_small_reference(torch)
+    check_small_reference_bf16(torch)
 
-    # 5. main path at full width
-    t0 = time.perf_counter()
-    pipe = build_pipeline(EtchConfig(num_point=N, batch_size=B), MARKERSET,
-                          allow_synthetic_body=True, rng_seed=0, device="cuda")
-    pts = capsule_clouds(B, N)
-    print(f"build_pipeline: {time.perf_counter() - t0:.1f} s")
-    _, warm = run_requests(torch, pipe, pts, 1)
-    _build.reset_launch_counts()
-    out, times = run_requests(torch, pipe, pts, TIMED_REQUESTS)
-    launches = dict(_build.launches)
-    print(f"launches during {TIMED_REQUESTS} requests: {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    shapes = {"vectors": (B, N, 3), "inner_points": (B, N, 3), "part_labels": (B, N),
-              "confidences": (B, N, 1), "markers": (B, 86, 3), "markers_valid": (B, 86),
-              "verts": (B, 6890, 3), "joints": (B, 45, 3)}
-    for key, shape in shapes.items():
-        if tuple(out[key].shape) != shape:
-            raise AssertionError(f"{key}: shape {tuple(out[key].shape)} != {shape}")
-    for key in ("vectors", "confidences", "markers", "verts", "joints"):
-        if not torch.isfinite(out[key]).all():
-            raise AssertionError(f"{key}: non-finite values")
-    med = statistics.median(times)
-    print(f"run_batch B={B} N={N} f32: warm {warm[0]:.1f} ms, timed ms "
-          f"{[round(t, 2) for t in times]}, median {med:.2f} ms/batch, "
-          f"{B * 1e3 / med:.2f} scans/s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # 5. main paths at full width: bf16 (what bench.py times), then f32
+    launches = main_path(torch, _build, "bf16")
+    launches.update({k: v for k, v in main_path(torch, _build, "f32").items()
+                     if k not in PATH_KERNELS["bf16"]})
 
-    pipe1 = build_pipeline(EtchConfig(num_point=N, batch_size=1), MARKERSET,
-                           allow_synthetic_body=True, rng_seed=0, device="cuda")
-    run_requests(torch, pipe1, pts[:1], 1)
-    _, times1 = run_requests(torch, pipe1, pts[:1], TIMED_REQUESTS)
-    print(f"run_batch B=1 latency: ms {[round(t, 2) for t in times1]}, median "
-          f"{statistics.median(times1):.2f} ms")
-
-    sources = {"fps": ("fps.cu", "etch_tpu/ops/pallas_fps.py:71"),
-               "knn": ("knn.cu", "etch_tpu/ops/pallas_knn.py:82"),
-               "ball_query": ("knn.cu", "etch_tpu/ops/pallas_knn.py:169"),
-               "interconv_ones": ("interconv.cu", "etch_tpu/nn/pallas_interconv.py:149"),
-               "interconv_t": ("interconv.cu", "etch_tpu/nn/pallas_interconv.py:115")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"etch_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[name], **kernels[name]}
-        for name, (src, replaces) in sources.items()]}))
+        for name, (src, replaces) in SOURCES.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,7 +8,9 @@ PyTorch version of the same function.
 
 f32 contract: the JAX package forces f32 matmul precision
 (`etch_tpu/__init__.py:18-23`); here TF32 is switched off for matmuls and
-convolutions alike.
+convolutions alike.  The bf16 path computes its bf16 products as f32
+products of bf16-rounded operands (`nn/bf16.py`), which relies on the same
+switch.
 """
 
 import torch as _torch

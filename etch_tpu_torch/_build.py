@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
 The sources under `etch_tpu_torch/csrc/` are compiled by `nvcc` for Hopper
-(`sm_90a`) into one shared library with a plain C interface, at first use,
-and loaded with `ctypes`.  The library lands in `build/etch_tpu_torch/<hash>/`
-at the repository root (listed in `.gitignore`), keyed by a hash of the
-sources and flags, so an unchanged checkout builds once.
+(`sm_90a`), one process per source, all started together, and linked into
+one shared library with a plain C interface, at first use, and loaded with
+`ctypes`.  The library lands in `build/etch_tpu_torch/<hash>/` at the
+repository root (listed in `.gitignore`), keyed by a hash of the sources and
+flags, so an unchanged checkout builds once.
 
 Nothing here runs at import time: the CPU-only test environment imports every
 module, and it has neither `nvcc` nor a card.
@@ -29,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "etch_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -41,12 +42,21 @@ _SIGNATURES = {
     "etch_ball_query": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
     "etch_interconv_t": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P),
+    "etch_interconv_t_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _F, _P),
     "etch_interconv_ones": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "etch_interconv_ones_proj": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _F, _P),
+    "etch_dircore": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "etch_vector_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _P),
+    "etch_grouped_head": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 # Launches per kernel since the last reset_launch_counts().
 launches = {"fps": 0, "knn": 0, "ball_query": 0, "interconv_ones": 0,
-            "interconv_t": 0}
+            "interconv_t": 0, "interconv_ones_proj": 0, "interconv_t_bf16": 0,
+            "dircore": 0, "vector_attention": 0, "grouped_head": 0}
 
 
 def reset_launch_counts() -> None:
@@ -80,14 +90,27 @@ def library() -> ctypes.CDLL:
     out = library_path()
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        sources = [str(f) for f in sorted(CSRC.glob("*.cu"))]
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        (out.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
+        tag = os.getpid()
+        nvcc = _nvcc()
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = out.parent / f"{src.stem}.{tag}.o"
+            jobs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs = [(src, proc.communicate()[0], proc.returncode) for src, _, proc in jobs]
+        failed = [f"{src.name} ({rc}):\n{text}" for src, text, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = out.with_name(f"{out.name}.{tag}.tmp")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *(str(obj) for _, obj, _ in jobs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        (out.parent / "nvcc.log").write_text("".join(text for _, text, _ in logs))
+        for _, obj, _ in jobs:
+            obj.unlink()
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():

@@ -1,13 +1,24 @@
 // Inter-SO(3)-conv contraction, with both neighbour gathers fused in.
 //
-// Replaces etch_tpu/nn/pallas_interconv.py:interconv_t_pallas, body _kernel
-// (C >= 32 feature contraction) and body _kernel_ones (all-ones occupancy
-// input).  For a center p with neighbours n = nbr[p, 0..nn):
+// Replaces etch_tpu/nn/pallas_interconv.py:interconv_t_pallas, bodies _kernel
+// (C >= 32 feature contraction, f32 or bf16 features), _kernel_ones (all-ones
+// occupancy input) and _kernel_ones_proj (occupancy input with the (K -> Co)
+// projection fused in, bf16 serving path).  For a center p with neighbours
+// n = nbr[p, 0..nn):
 //
 //   x_pn       = xyz[nbr[p, n]] - center[p]
 //   w[n, a, k] = relu(1 - |x_pn - R_a kappa_k|^2 / sigma)     (A*K = 1440)
 //   t[p,a,k,c] = sum_n w[n, a, k] * feats[nbr[p, n], a*C + c]  (contraction)
 //   t[p,a,k]   = sum_n w[n, a, k]                             (occupancy)
+//   o[p,a,o]   = sum_k bf16(t[p,a,k]) * bf16(W[k, o])          (ones_proj)
+//
+// bf16 features (the serving path's streaming type): w is rounded to bf16
+// before the multiply, as _kernel does before its bf16 MXU dot, the sums stay
+// f32 and t is written as bf16 (the TPU kernel's bf16 output).  The
+// occupancy projection rounds the f32 neighbour sums and W to bf16 and sums
+// the K products per anchor in f32; the TPU's block-diagonal (A*K, A*Co)
+// weight is a matrix-unit trick and is not built here.  The weights are the
+// exact f32 ones (the TPU's approximate fast_w variant is not ported).
 //
 // The JAX package gathers the neighbour coordinates and the (c, nn, A*C)
 // feature block into device memory first (etch_tpu/nn/epn.py:223,239) and
@@ -25,8 +36,15 @@
 // of G, sized so the w tile (nn x G*K) and the feature tile (nn x G*C) fit in
 // shared memory (a whole (64, 1440) f32 w block is 368 KB and does not); each
 // thread accumulates a TK x TC = 3 x 4 register micro-tile of (k, c) outputs,
-// so seven shared-memory reads feed twelve FMAs.  Tensor-core (wgmma) and TMA
-// staging are left for later work.
+// so seven shared-memory reads feed twelve FMAs.  The bf16 variant is the
+// same kernel reading half the feature bytes; its products of two bf16 values
+// are exact in f32, so FP32 FMAs reproduce a bf16 MMA with f32 accumulation.
+// Tensor-core (wgmma) and TMA staging are left for later work.
+//
+// The fused occupancy projection is bound by the weight evaluation, as the
+// plain occupancy kernel is (nn*A*K = 92 K weights per center); its
+// projection adds A*K*Co = 46 K FMAs per center out of shared memory and
+// removes the (B, c, A, K) f32 intermediate and the separate projection.
 #include "common.cuh"
 
 namespace {
@@ -52,15 +70,18 @@ __device__ __forceinline__ float kernel_weight(const float* g, const float* r, f
   return fmaxf(1.f - (dx * dx + dy * dy + dz * dz) / sigma, 0.f);
 }
 
-// grid (c, B); block G * (K / kTK) * (C / kTC) threads.
+// grid (c, B); block G * (K / kTK) * (C / kTC) threads.  T: feature and
+// output type (float, or bf16 with w rounded to bf16 before the multiply).
+template <typename T>
 __global__ void interconv_kernel(const float* __restrict__ xyz,      // (B, P, 3)
                                  const float* __restrict__ centers,  // (B, c, 3)
                                  const int32_t* __restrict__ nbr,    // (B, c, nn)
-                                 const float* __restrict__ feats,    // (B, P, A*C)
+                                 const T* __restrict__ feats,        // (B, P, A*C)
                                  const float* __restrict__ rk,       // (A*K, 3)
-                                 float* __restrict__ out,            // (B, c, A, K, C)
+                                 T* __restrict__ out,                // (B, c, A, K, C)
                                  int P, int c, int nn, int A, int K, int C, int G,
                                  float sigma) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ float smem[];
   float* gx = smem;                       // nn * 3
   float* ws = gx + nn * 3;                // nn * G*K
@@ -80,18 +101,19 @@ __global__ void interconv_kernel(const float* __restrict__ xyz,      // (B, P, 3
   const int c0 = (r % ct_n) * kTC;
   const int GK = G * K, GC = G * C;
   const size_t AC = static_cast<size_t>(A) * C;
-  const float* fb = feats + static_cast<size_t>(b) * P * AC;
-  float* ob = out + bp * static_cast<size_t>(A) * K * C;
+  const T* fb = feats + static_cast<size_t>(b) * P * AC;
+  T* ob = out + bp * static_cast<size_t>(A) * K * C;
 
   for (int a0 = 0; a0 < A; a0 += G) {
     __syncthreads();  // offsets ready / previous group's tiles consumed
     for (int e = threadIdx.x; e < nn * GK; e += blockDim.x) {
       const int n = e / GK, gk = e % GK;
-      ws[e] = kernel_weight(gx + 3 * n, rk + 3 * (static_cast<size_t>(a0) * K + gk), sigma);
+      const float w = kernel_weight(gx + 3 * n, rk + 3 * (static_cast<size_t>(a0) * K + gk), sigma);
+      ws[e] = kBf16 ? etch_round_bf16(w) : w;
     }
     for (int e = threadIdx.x; e < nn * GC; e += blockDim.x) {
       const int n = e / GC, col = e % GC;
-      fs[e] = fb[static_cast<size_t>(sidx[n]) * AC + static_cast<size_t>(a0) * C + col];
+      fs[e] = etch_f32(fb[static_cast<size_t>(sidx[n]) * AC + static_cast<size_t>(a0) * C + col]);
     }
     __syncthreads();
 
@@ -113,11 +135,11 @@ __global__ void interconv_kernel(const float* __restrict__ xyz,      // (B, P, 3
 #pragma unroll
         for (int j = 0; j < kTC; ++j) acc[i][j] = fmaf(wv[i], fv[j], acc[i][j]);
     }
-    float* op = ob + (static_cast<size_t>(a0 + g) * K + k0) * C + c0;
+    T* op = ob + (static_cast<size_t>(a0 + g) * K + k0) * C + c0;
 #pragma unroll
     for (int i = 0; i < kTK; ++i)
 #pragma unroll
-      for (int j = 0; j < kTC; ++j) op[i * C + j] = acc[i][j];
+      for (int j = 0; j < kTC; ++j) etch_store(op + i * C + j, acc[i][j]);
   }
 }
 
@@ -143,6 +165,59 @@ __global__ void interconv_ones_kernel(const float* __restrict__ xyz,      // (B,
   }
 }
 
+// grid (c, B); block 256.  The neighbour sums of interconv_ones_kernel (same
+// f32 summation order), rounded to bf16 in shared memory, then a per-anchor
+// (A, K) x (K, Co) product with f32 accumulators, written as bf16.
+__global__ void interconv_ones_proj_kernel(const float* __restrict__ xyz,      // (B, P, 3)
+                                           const float* __restrict__ centers,  // (B, c, 3)
+                                           const int32_t* __restrict__ nbr,    // (B, c, nn)
+                                           const float* __restrict__ rk,       // (A*K, 3)
+                                           const bf16* __restrict__ w,         // (K, Co)
+                                           bf16* __restrict__ out,             // (B, c, A*Co)
+                                           int P, int c, int nn, int A, int K, int Co,
+                                           float sigma) {
+  extern __shared__ float smem[];
+  float* gx = smem;             // nn * 3
+  float* ws = gx + nn * 3;      // A * K, bf16-rounded neighbour sums
+  float* wp = ws + A * K;       // K * Co, W as float
+  const int p = blockIdx.x, b = blockIdx.y;
+  const size_t bp = static_cast<size_t>(b) * c + p;
+  load_offsets(xyz + static_cast<size_t>(b) * P * 3, centers + bp * 3, nbr + bp * nn, nn,
+               gx, nullptr);
+  for (int e = threadIdx.x; e < K * Co; e += blockDim.x) wp[e] = etch_f32(w[e]);
+  __syncthreads();
+  for (int e = threadIdx.x; e < A * K; e += blockDim.x) {
+    const float rv[3] = {rk[3 * e], rk[3 * e + 1], rk[3 * e + 2]};
+    float acc = 0.f;
+    for (int n = 0; n < nn; ++n) acc += kernel_weight(gx + 3 * n, rv, sigma);
+    ws[e] = etch_round_bf16(acc);
+  }
+  __syncthreads();
+  bf16* ob = out + bp * static_cast<size_t>(A) * Co;
+  for (int e = threadIdx.x; e < A * Co; e += blockDim.x) {
+    const int a = e / Co, o = e % Co;
+    const float* wr = ws + a * K;
+    float acc = 0.f;
+    for (int k = 0; k < K; ++k) acc = fmaf(wr[k], wp[k * Co + o], acc);
+    ob[e] = __float2bfloat16(acc);
+  }
+}
+
+template <typename T>
+int launch_interconv_t(const float* xyz, const float* centers, const int32_t* nbr,
+                       const void* feats, const float* rk, void* out, int b, int P, int c,
+                       int nn, int A, int K, int C, int G, float sigma, cudaStream_t stream) {
+  const size_t smem =
+      (static_cast<size_t>(nn) * (3 + G * K + G * C) + nn) * sizeof(float);
+  cudaError_t err = etch_allow_smem(interconv_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = G * (K / kTK) * (C / kTC);
+  interconv_kernel<T><<<dim3(c, b), threads, smem, stream>>>(
+      xyz, centers, nbr, static_cast<const T*>(feats), rk, static_cast<T*>(out), P, c, nn, A,
+      K, C, G, sigma);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Contraction.  Requires K % 3 == 0, C % 4 == 0, A % G == 0; the caller picks
@@ -151,14 +226,18 @@ ETCH_API int etch_interconv_t(const float* xyz, const float* centers, const int3
                               const float* feats, const float* rk, float* out, int b, int P,
                               int c, int nn, int A, int K, int C, int G, float sigma,
                               cudaStream_t stream) {
-  const size_t smem =
-      (static_cast<size_t>(nn) * (3 + G * K + G * C) + nn) * sizeof(float);
-  cudaError_t err = etch_allow_smem(interconv_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = G * (K / kTK) * (C / kTC);
-  interconv_kernel<<<dim3(c, b), threads, smem, stream>>>(xyz, centers, nbr, feats, rk, out,
-                                                          P, c, nn, A, K, C, G, sigma);
-  return static_cast<int>(cudaGetLastError());
+  return launch_interconv_t<float>(xyz, centers, nbr, feats, rk, out, b, P, c, nn, A, K, C, G,
+                                   sigma, stream);
+}
+
+// The same contraction on bf16 feature rows: bf16 w times bf16 features,
+// f32 sums, bf16 t.
+ETCH_API int etch_interconv_t_bf16(const float* xyz, const float* centers,
+                                   const int32_t* nbr, const void* feats, const float* rk,
+                                   void* out, int b, int P, int c, int nn, int A, int K, int C,
+                                   int G, float sigma, cudaStream_t stream) {
+  return launch_interconv_t<bf16>(xyz, centers, nbr, feats, rk, out, b, P, c, nn, A, K, C, G,
+                                  sigma, stream);
 }
 
 // Occupancy (all-ones features): out (b, c, A*K).
@@ -170,5 +249,20 @@ ETCH_API int etch_interconv_ones(const float* xyz, const float* centers, const i
   if (err != cudaSuccess) return static_cast<int>(err);
   interconv_ones_kernel<<<dim3(c, b), 256, smem, stream>>>(xyz, centers, nbr, rk, out, P, c,
                                                            nn, AK, sigma);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Occupancy conv with the fused (K -> Co) projection: w (K, Co) bf16,
+// out (b, c, A*Co) bf16.
+ETCH_API int etch_interconv_ones_proj(const float* xyz, const float* centers,
+                                      const int32_t* nbr, const float* rk, const void* w,
+                                      void* out, int b, int P, int c, int nn, int A, int K,
+                                      int Co, float sigma, cudaStream_t stream) {
+  const size_t smem = (static_cast<size_t>(nn) * 3 + A * K + K * Co) * sizeof(float);
+  cudaError_t err = etch_allow_smem(interconv_ones_proj_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  interconv_ones_proj_kernel<<<dim3(c, b), 256, smem, stream>>>(
+      xyz, centers, nbr, rk, static_cast<const bf16*>(w), static_cast<bf16*>(out), P, c, nn, A,
+      K, Co, sigma);
   return static_cast<int>(cudaGetLastError());
 }

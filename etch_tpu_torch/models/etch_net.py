@@ -1,9 +1,10 @@
 """Top-level ETCH network: EPN encoder + direction/magnitude/confidence heads.
 
-Port of `etch_tpu/models/etch_net.py` (f32 serving path).  Input is a batch
-of scans (B, N, 3); outputs are per-point direction (B, N, 3, unit),
-magnitude (B, N, 1, scaled x10), 86-way part logits (B, N, 86) and
-confidence (B, N, 1).  Parameter names follow the flax tree so
+Port of `etch_tpu/models/etch_net.py` (serving path, f32 or with
+`cfg.use_bfloat16` the bf16 policy of `nn/bf16.py`).  Input is a batch of
+scans (B, N, 3); outputs are per-point direction (B, N, 3, unit), magnitude
+(B, N, 1, scaled x10), 86-way part logits (B, N, 86) and confidence
+(B, N, 1), all f32.  Parameter names follow the flax tree so
 `convert.flax_to_state_dict` maps weights by path.
 """
 
@@ -17,7 +18,7 @@ from torch import nn
 
 from etch_tpu_torch.geometry.icosahedral import get_anchors
 from etch_tpu_torch.geometry.so3 import project_to_so3
-from etch_tpu_torch.nn.dircore import direction_core_ref
+from etch_tpu_torch.nn.dircore import direction_core
 from etch_tpu_torch.nn.epn import EPNBackbone, InterSO3Conv, IntraSO3Conv
 from etch_tpu_torch.nn.point_transformer import (BatchNorm, PointTransformerLayer,
                                                  PointTransformerSeg, unet_geometry)
@@ -29,12 +30,15 @@ class DirectionHead(nn.Module):
     """Anchor-attention direction decoder (reference
     models_pointcloud.py:52-54,111-126): per point, MHSA over the 60 anchor
     tokens -> MLP -> scalar anchor weights -> weighted chordal mean of the
-    anchor rotations -> its third column (R @ [0, 0, 1])."""
+    anchor rotations -> its third column (R @ [0, 0, 1]).  With dtype=bf16
+    the tokens are cast to bf16 up front and the core runs the bf16 policy
+    (the CUDA kernel on the card); the chordal mean and the SO(3) projection
+    stay f32."""
 
     def __init__(self, embed_dim: int, value_dim: int = 128, num_heads: int = 8,
-                 num_layers: int = 2, chunk: int = 2048):
+                 num_layers: int = 2, chunk: int = 2048, dtype=None):
         super().__init__()
-        self.num_heads, self.chunk = num_heads, chunk
+        self.num_heads, self.chunk, self.dtype = num_heads, chunk, dtype
         E, V = embed_dim, value_dim
         for l in range(num_layers):
             out_d = V if l == num_layers - 1 else E
@@ -57,9 +61,9 @@ class DirectionHead(nn.Module):
         B, N, A, C = equiv_feat.shape
         params = dict(self.named_parameters())
         x = equiv_feat.reshape(B * N, A, C)
-        # chunk over points to bound the (chunk, H, A, A) attention logits
-        w = torch.cat([direction_core_ref(x[s:s + self.chunk], params, self.num_heads)
-                       for s in range(0, B * N, self.chunk)])       # (M, A)
+        if self.dtype is not None:
+            x = x.to(self.dtype).contiguous()
+        w = direction_core(x, params, self.num_heads, self.chunk)  # (M, A) f32
         R = project_to_so3((w @ self.anchors).reshape(B * N, 3, 3))
         return R[..., :, 2].reshape(B, N, 3)
 
@@ -71,18 +75,19 @@ class EtchNet(nn.Module):
         super().__init__()
         self.cfg = cfg
         plan = backbone_plan(cfg)
-        self.encoder = EPNBackbone(plan)
+        dtype = torch.bfloat16 if cfg.use_bfloat16 else None
+        self.encoder = EPNBackbone(plan, dtype)
         feat_dim = plan[-1][-1]["dim_out"]
         self.direction_head = DirectionHead(
             feat_dim, cfg.dir_value_dim, cfg.dir_num_heads, cfg.dir_num_layers,
-            cfg.dir_chunk)
+            cfg.dir_chunk, dtype)
         self.magnitude_encoder = PointTransformerSeg(
             "magnitude", 3 + feat_dim, planes=cfg.unet_planes_magnitude,
-            blocks=cfg.unet_blocks, strides=cfg.unet_strides)
+            blocks=cfg.unet_blocks, strides=cfg.unet_strides, dtype=dtype)
         self.confidence_encoder = PointTransformerSeg(
             "confidence", 3 + feat_dim, num_classes=cfg.num_markers,
             planes=cfg.unet_planes_confidence, blocks=cfg.unet_blocks,
-            strides=cfg.unet_strides)
+            strides=cfg.unet_strides, dtype=dtype)
 
     def forward(self, hitpts: torch.Tensor):
         """hitpts (B, N, 3) -> dict with direction, magnitude, part_labels
@@ -100,10 +105,10 @@ class EtchNet(nn.Module):
         geom = unet_geometry(hitpts, self.cfg.unet_strides, self.cfg.unet_nsamples)
         logits, conf = self.confidence_encoder(hitpts, point_inv, geom)
         return {
-            "part_labels": logits,
-            "confidences": conf,
+            "part_labels": logits.float(),
+            "confidences": conf.float(),
             "direction": self.direction_head(point_equiv.transpose(2, 3)),
-            "magnitude": self.magnitude_encoder(hitpts, point_inv, geom),
+            "magnitude": self.magnitude_encoder(hitpts, point_inv, geom).float(),
         }
 
 

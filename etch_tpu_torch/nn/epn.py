@@ -14,6 +14,14 @@ dense (B, P, A, C) with A = 60 anchors, channels last, as in the JAX package.
     The JAX package folds the gather into a block-sparse (A*C -> A*C_out)
     matmul instead (a TPU trade); the sum runs in another order, so the two
     agree to f32 rounding, not bit for bit.
+
+`compute_dtype=torch.bfloat16` is the bf16 serving path (JAX
+`compute_dtype=bfloat16`): the features stream as bf16 rows into the
+contraction (bf16 t), the (K*C -> C_out) projection and the intra conv take
+bf16 operands with f32 sums and f32 outputs, and the occupancy conv runs
+with its projection fused (`interconv_ones_proj`, bf16 output).  Instance
+norm statistics stay in float64 and the skip conv in f32, as in the JAX
+package (whose skip Dense has no dtype).
 """
 
 from __future__ import annotations
@@ -24,7 +32,8 @@ from torch import nn
 
 from etch_tpu_torch.geometry.icosahedral import get_anchors, get_intra_idx
 from etch_tpu_torch.geometry.kernel_points import get_kernel_points
-from etch_tpu_torch.nn.interconv import interconv_ones, interconv_t
+from etch_tpu_torch.nn.bf16 import mm
+from etch_tpu_torch.nn.interconv import interconv_ones, interconv_ones_proj, interconv_t
 from etch_tpu_torch.ops import ball_query, fps, gather_points
 
 
@@ -49,8 +58,10 @@ class InterSO3Conv(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int, kernel_size: int, stride: int,
                  radius: float, sigma: float, n_neighbor: int, lazy_sample: bool,
-                 occupancy_input: bool = False, chunk: int = 512, **_):
+                 occupancy_input: bool = False, chunk: int = 512, compute_dtype=None,
+                 **_):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.dim_in, self.dim_out = dim_in, dim_out
         self.stride, self.radius, self.sigma = stride, radius, sigma
         self.n_neighbor, self.lazy_sample = n_neighbor, lazy_sample
@@ -82,19 +93,27 @@ class InterSO3Conv(nn.Module):
                 raise ValueError(f"occupancy conv expects C=1, got C={C}")
             flat = None
         else:
-            flat = feats.reshape(B, P, A * C).contiguous()
+            # rows streamed in the compute type, flattened before the gather
+            flat = feats.to(self.compute_dtype or feats.dtype).reshape(B, P, A * C)
+            flat = flat.contiguous()
         W = self.W.reshape(self.K * C, self.dim_out)
+        bf16 = self.compute_dtype is not None
         outs = []
         for s in range(0, P2, self.chunk):
             ctr = new_xyz[:, s:s + self.chunk].contiguous()
             idx = nbr[:, s:s + self.chunk].contiguous()
+            c = ctr.shape[1]
+            if flat is None and bf16:
+                # occupancy conv with the (K -> Co) projection fused in
+                o = interconv_ones_proj(xyz, ctr, idx, self.rk, self.sigma, A, W)
+                outs.append(o.float() + self.bias)
+                continue
             if flat is None:
                 t = interconv_ones(xyz, ctr, idx, self.rk, self.sigma, A)
             else:
                 t = interconv_t(xyz, ctr, idx, flat, self.rk, self.sigma, A)
             # (K*C -> Co) projection, W row index k*C + c (K-major)
-            c = ctr.shape[1]
-            outs.append(t.reshape(B, c, A, self.K * C) @ W + self.bias)
+            outs.append(mm(t.reshape(B, c, A, self.K * C), W, bf16) + self.bias)
         return new_xyz, torch.cat(outs, dim=1), sample_idx
 
 
@@ -102,8 +121,9 @@ class IntraSO3Conv(nn.Module):
     """Rotation-group conv over the 12-neighbour anchor adjacency
     (reference vgtk modules.py:131-153), gather + (12*C -> O) matmul."""
 
-    def __init__(self, dim_in: int, dim_out: int):
+    def __init__(self, dim_in: int, dim_out: int, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         intra = np.asarray(get_intra_idx(), np.int64)              # (A, 12)
         self.register_buffer("intra_idx", torch.from_numpy(intra), persistent=False)
         self.W = nn.Parameter(torch.empty(intra.shape[1] * dim_in, dim_out))
@@ -111,8 +131,11 @@ class IntraSO3Conv(nn.Module):
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         B, P, A, C = feats.shape
+        bf16 = self.compute_dtype is not None
+        if bf16:   # round before the 12x gather: the same values, 1/12 the work
+            feats = feats.to(self.compute_dtype)
         g = feats[:, :, self.intra_idx, :]                         # (B,P,A,12,C)
-        return g.reshape(B, P, A, -1) @ self.W + self.bias
+        return mm(g.reshape(B, P, A, -1), self.W, bf16) + self.bias
 
 
 class SeparableSO3ConvBlock(nn.Module):
@@ -121,11 +144,11 @@ class SeparableSO3ConvBlock(nn.Module):
 
     negative_slope = 0.01  # torch leaky_relu default
 
-    def __init__(self, spec: dict):
+    def __init__(self, spec: dict, compute_dtype=None):
         super().__init__()
         self.stride = spec["stride"]
-        self.inter = InterSO3Conv(**spec)
-        self.intra = IntraSO3Conv(spec["dim_out"], spec["dim_out"])
+        self.inter = InterSO3Conv(**spec, compute_dtype=compute_dtype)
+        self.intra = IntraSO3Conv(spec["dim_out"], spec["dim_out"], compute_dtype)
         self.skip_conv = nn.Linear(spec["dim_in"], spec["dim_out"])
 
     def forward(self, xyz: torch.Tensor, feats: torch.Tensor):
@@ -144,13 +167,13 @@ class EPNBackbone(nn.Module):
     """Stack of separable SO(3) conv blocks driven by `backbone_plan`
     (reference so3net.py:10-33, 36-152)."""
 
-    def __init__(self, plan):
+    def __init__(self, plan, compute_dtype=None):
         super().__init__()
         self.names = []
         for bi, block in enumerate(plan):
             for ci, spec in enumerate(block):
                 name = f"block{bi}_conv{ci}"
-                self.add_module(name, SeparableSO3ConvBlock(spec))
+                self.add_module(name, SeparableSO3ConvBlock(spec, compute_dtype))
                 self.names.append(name)
 
     def forward(self, xyz: torch.Tensor):

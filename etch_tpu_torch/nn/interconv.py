@@ -1,15 +1,21 @@
 """Inter-SO(3)-conv contraction: plain versions and kernel launches.
 
 Port of `etch_tpu/nn/pallas_interconv.py` (`interconv_t_pallas`, bodies
-`_kernel` and `_kernel_ones`).  Unlike the JAX contract, which takes
-pre-gathered relative coordinates and feature rows, both functions here take
-the neighbour indices and gather themselves, so the CUDA kernel
-(`csrc/interconv.cu`) can fuse both gathers:
+`_kernel`, `_kernel_ones` and `_kernel_ones_proj`).  Unlike the JAX contract,
+which takes pre-gathered relative coordinates and feature rows, the
+functions here take the neighbour indices and gather themselves, so the CUDA
+kernels (`csrc/interconv.cu`) can fuse both gathers:
 
     x_pn       = xyz[nbr[p, n]] - centers[p]
     w[p,n,a,k] = relu(1 - |x_pn - rk[a*K + k]|^2 / sigma)
     t[p,a,k,c] = sum_n w[p,n,a,k] * feats[nbr[p, n], a*C + c]   (interconv_t)
     t[p,a,k]   = sum_n w[p,n,a,k]                             (interconv_ones)
+    o[p,a,o]   = sum_k bf16(t[p,a,k]) * bf16(W[k, o])         (interconv_ones_proj)
+
+With bf16 feature rows (the serving path) `interconv_t` rounds w to bf16
+before the multiply, sums in f32 and returns t as bf16, as the TPU kernel
+does; `interconv_ones_proj` returns bf16 too.  The weights w are exact
+(the TPU's approximate `fast_w` variant is not ported).
 
 Shapes: xyz (B, P, 3), centers (B, c, 3), nbr (B, c, nn) int32, feats
 (B, P, A*C) contiguous (the row layout `materialize_rows` pins on the TPU),
@@ -22,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from etch_tpu_torch import _build
+from etch_tpu_torch.nn.bf16 import BF16, rnd
 from etch_tpu_torch.ops.grouping import group_points
 
 _TK, _TC = 3, 4        # per-thread (k, c) micro-tile of csrc/interconv.cu
@@ -39,19 +46,27 @@ def _weights(xyz, centers, nbr, rk, sigma):
 
 
 def interconv_t_torch(xyz, centers, nbr, feats, rk, sigma: float, A: int):
-    """Plain contraction -> t (B, c, A, K, C) f32."""
+    """Plain contraction -> t (B, c, A, K, C), in the type of feats."""
     B, c, nn = nbr.shape
     K = rk.shape[0] // A
     C = feats.shape[-1] // A
-    w = _weights(xyz, centers, nbr, rk, sigma).reshape(B, c, nn, A, K)
-    gf = group_points(feats, nbr).reshape(B, c, nn, A, C)
-    return torch.einsum("bcnak,bcnad->bcakd", w, gf)
+    bf16 = feats.dtype == BF16
+    w = rnd(_weights(xyz, centers, nbr, rk, sigma), bf16).reshape(B, c, nn, A, K)
+    gf = group_points(feats, nbr).float().reshape(B, c, nn, A, C)
+    return torch.einsum("bcnak,bcnad->bcakd", w, gf).to(feats.dtype)
 
 
 def interconv_ones_torch(xyz, centers, nbr, rk, sigma: float, A: int):
     """Plain occupancy conv -> t (B, c, A, K) f32."""
     B, c, _ = nbr.shape
     return _weights(xyz, centers, nbr, rk, sigma).sum(2).reshape(B, c, A, -1)
+
+
+def interconv_ones_proj_torch(xyz, centers, nbr, rk, sigma: float, A: int, w):
+    """Plain occupancy conv + (K -> Co) projection, w (K, Co) -> (B, c, A, Co)
+    bf16."""
+    t = interconv_ones_torch(xyz, centers, nbr, rk, sigma, A)
+    return (rnd(t) @ rnd(w)).to(BF16)
 
 
 def _anchor_group(A: int, per_anchor: int) -> int:
@@ -74,8 +89,11 @@ def _check_geometry(name, xyz, centers, nbr, rk):
 
 
 def interconv_t_cuda(xyz, centers, nbr, feats, rk, sigma: float, A: int):
-    device = _check_geometry("interconv_t", xyz, centers, nbr, rk)
-    _build.check_cuda("interconv_t", (feats, torch.float32))
+    """f32 feature rows launch `interconv_t`, bf16 rows `interconv_t_bf16`."""
+    bf16 = feats.dtype == BF16
+    name = "interconv_t_bf16" if bf16 else "interconv_t"
+    device = _check_geometry(name, xyz, centers, nbr, rk)
+    _build.check_cuda(name, (feats, BF16 if bf16 else torch.float32))
     B, c, nn = nbr.shape
     P = xyz.shape[1]
     K = rk.shape[0] // A
@@ -92,8 +110,8 @@ def interconv_t_cuda(xyz, centers, nbr, feats, rk, sigma: float, A: int):
     if 4 * nn * (4 + G * K + G * C) > _SMEM_BYTES:
         raise ValueError(f"interconv_t: nn={nn} neighbours do not fit shared "
                          f"memory")
-    out = torch.empty((B, c, A, K, C), dtype=torch.float32, device=device)
-    _build.launch("interconv_t", "etch_interconv_t", device, _build.ptr(xyz),
+    out = torch.empty((B, c, A, K, C), dtype=feats.dtype, device=device)
+    _build.launch(name, f"etch_{name}", device, _build.ptr(xyz),
                   _build.ptr(centers), _build.ptr(nbr), _build.ptr(feats),
                   _build.ptr(rk), _build.ptr(out), B, P, c, nn, A, K, C, G,
                   float(sigma))
@@ -109,6 +127,24 @@ def interconv_ones_cuda(xyz, centers, nbr, rk, sigma: float, A: int):
                   _build.ptr(xyz), _build.ptr(centers), _build.ptr(nbr),
                   _build.ptr(rk), _build.ptr(out), B, xyz.shape[1], c, nn, AK,
                   float(sigma))
+    return out
+
+
+def interconv_ones_proj_cuda(xyz, centers, nbr, rk, sigma: float, A: int, w):
+    device = _check_geometry("interconv_ones_proj", xyz, centers, nbr, rk)
+    _build.check_cuda("interconv_ones_proj", (w, torch.float32))
+    B, c, nn = nbr.shape
+    AK = rk.shape[0]
+    K, Co = w.shape
+    if AK != A * K:
+        raise ValueError(f"interconv_ones_proj: w {tuple(w.shape)} does not match "
+                         f"A*K = {AK} kernel points for A={A}")
+    wb = w.to(BF16)
+    out = torch.empty((B, c, A, Co), dtype=BF16, device=device)
+    _build.launch("interconv_ones_proj", "etch_interconv_ones_proj", device,
+                  _build.ptr(xyz), _build.ptr(centers), _build.ptr(nbr),
+                  _build.ptr(rk), _build.ptr(wb), _build.ptr(out), B, xyz.shape[1],
+                  c, nn, A, K, Co, float(sigma))
     return out
 
 
@@ -128,3 +164,13 @@ def interconv_ones(xyz, centers, nbr, rk, sigma: float, A: int):
     if xyz.device.type == "cpu":
         return interconv_ones_torch(xyz, centers, nbr, rk, sigma, A)
     raise ValueError(f"interconv_ones: unsupported device {xyz.device}")
+
+
+def interconv_ones_proj(xyz, centers, nbr, rk, sigma: float, A: int, w):
+    """Occupancy conv projected by w (K, Co) -> (B, c, A, Co) bf16: kernel on
+    CUDA, plain version on CPU."""
+    if xyz.is_cuda:
+        return interconv_ones_proj_cuda(xyz, centers, nbr, rk, sigma, A, w)
+    if xyz.device.type == "cpu":
+        return interconv_ones_proj_torch(xyz, centers, nbr, rk, sigma, A, w)
+    raise ValueError(f"interconv_ones_proj: unsupported device {xyz.device}")

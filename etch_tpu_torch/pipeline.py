@@ -2,9 +2,13 @@
 
 Port of `etch_tpu/pipeline.py` (`InferencePipeline.run_batch`,
 `build_pipeline`): network forward -> tightness vectors and inner points ->
-marker extraction -> two-stage LM SMPL fit -> SMPL forward.  On a CUDA
-device every point-cloud primitive on that path (FPS, kNN, ball query, the
-inter-conv contraction and occupancy conv) runs its hand-written kernel.
+marker extraction -> two-stage LM SMPL fit -> SMPL forward, in f32 or, with
+`EtchConfig(use_bfloat16=True)`, the bf16 policy of the JAX package.  On a
+CUDA device every kernel on that path runs its hand-written version: FPS,
+kNN, ball query and the inter-conv contraction on both paths; the
+occupancy conv (with its fused projection on the bf16 path), and on the
+bf16 path the direction core, the vector attention and the grouped
+confidence head.
 
 Not ported yet: `predict` / `fit` / `run_scan` / `export`, checkpoint
 restore and loading an SMPL .pkl (the repository carries neither weights nor

@@ -2,9 +2,7 @@
 
 A copy of `etch_tpu/utils/config.py`: the port cannot import the JAX package
 (importing it imports jax), so the pure-Python configuration is duplicated
-here field for field.  The one addition is `EtchConfig.__post_init__`, which
-refuses the bf16 serving policy that the port does not implement yet.
-
+here field for field.
 
 The reference duplicates hyperparameters across argparse in train/eval/infer
 (`src/train.py:144-175`, `src/eval.py:271-289`) plus a yacs CfgNode for EPN
@@ -87,16 +85,6 @@ class EtchConfig:
     # dtype policy: params & norm statistics in f32; large contractions may
     # run in bf16 with f32 accumulation when `use_bfloat16` is on.
     use_bfloat16: bool = False
-
-    def __post_init__(self):
-        if self.use_bfloat16:
-            raise NotImplementedError(
-                "EtchConfig(use_bfloat16=True): the bf16 serving path (fused "
-                "direction core, vector attention, grouped head and occupancy "
-                "projection kernels) is not ported yet; it is the next slice "
-                "of the PyTorch port (ROADMAP.md, queue B).  Use the f32 "
-                "default."
-            )
 
     def replace(self, **kw) -> "EtchConfig":
         return dataclasses.replace(self, **kw)

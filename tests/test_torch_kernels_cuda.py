@@ -7,8 +7,12 @@ skips when torch sees no CUDA device (the decision is made at test time, not
 at import).  Small shapes; main-path shapes are checked by chip_smoke.py.
 
 Index outputs must be equal (both sides compute direct-difference squared
-distances in the same rounding order); the inter-conv outputs agree to
-1e-5 * max|t| (f32 sums in another order)."""
+distances in the same rounding order); the f32 inter-conv outputs agree to
+1e-5 * max|t| (f32 sums in another order).  The bf16 kernels round at the
+same points as their plain versions and differ in summation order only,
+which can move a value across a bf16 rounding boundary now and then:
+max |kernel - plain| <= 1e-2 * max|plain| and a median relative error
+(|diff| / (|plain| + 1e-2)) <= 1e-3."""
 
 import importlib
 
@@ -19,7 +23,7 @@ import torch
 from etch_tpu_torch import _build
 from etch_tpu_torch.geometry.icosahedral import get_anchors
 from etch_tpu_torch.geometry.kernel_points import get_kernel_points
-from etch_tpu_torch.nn import interconv
+from etch_tpu_torch.nn import dircore, grouped_head, interconv, vector_attention
 
 # the modules themselves: etch_tpu_torch.ops re-exports same-named functions
 ball_query = importlib.import_module("etch_tpu_torch.ops.ball_query")
@@ -100,6 +104,108 @@ def test_interconv_ones_kernel(cuda):
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
+def _close_bf16(out, ref):
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    assert err.max() <= 1e-2 * ref.abs().max(), err.max()
+    assert (err / (ref.abs() + 1e-2)).median() <= 1e-3
+
+
+@pytest.mark.parametrize("C", [8, 32])
+def test_interconv_t_bf16_kernel(cuda, C):
+    xyz, ctr, nbr, feats, rk, sigma = _conv_inputs(cuda, C)
+    fb = feats.to(torch.bfloat16)
+    before = _build.launches["interconv_t_bf16"]
+    out = interconv.interconv_t(xyz, ctr, nbr, fb, rk, sigma, 60)
+    assert _build.launches["interconv_t_bf16"] == before + 1
+    assert out.dtype == torch.bfloat16
+    _close_bf16(out, interconv.interconv_t_torch(xyz, ctr, nbr, fb, rk, sigma, 60))
+
+
+def test_interconv_ones_proj_kernel(cuda):
+    xyz, ctr, nbr, _, rk, sigma = _conv_inputs(cuda, 0)
+    w = torch.randn((24, 32), device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    out = interconv.interconv_ones_proj_cuda(xyz, ctr, nbr, rk, sigma, 60, w)
+    ref = interconv.interconv_ones_proj_torch(xyz, ctr, nbr, rk, sigma, 60, w)
+    assert out.shape == ref.shape == (2, 100, 60, 32) and out.dtype == torch.bfloat16
+    _close_bf16(out, ref)
+
+
+def _dircore_params(dev, E, V, seed=3):
+    g = np.random.RandomState(seed)
+    p = {}
+    for l in (0, 1):
+        for nm in ("wq", "wk", "wv"):
+            p[f"{nm}{l}"] = g.randn(E, E) / np.sqrt(E)
+    p["wc0"], p["bc0"] = g.randn(E, E) / np.sqrt(E), 0.1 * g.randn(E)
+    p["wc1"], p["bc1"] = g.randn(E, V) / np.sqrt(E), 0.1 * g.randn(V)
+    p["wm0"], p["bm0"] = g.randn(V, V) / np.sqrt(V), 0.1 * g.randn(V)
+    p["wm1"], p["bm1"] = g.randn(V, V) / np.sqrt(V), 0.1 * g.randn(V)
+    p["wr"], p["br"] = g.randn(V, 1) / np.sqrt(V), 0.1 * g.randn(1)
+    return {k: torch.tensor(v, dtype=torch.float32, device=dev) for k, v in p.items()}
+
+
+@pytest.mark.parametrize("E,V,H", [(64, 128, 8), (8, 16, 2)])
+def test_dircore_kernel(cuda, E, V, H):
+    params = _dircore_params(cuda, E, V)
+    tok = torch.from_numpy(np.random.RandomState(0).randn(37, 60, E).astype(np.float32))
+    tok = tok.to(cuda, torch.bfloat16)
+    before = _build.launches["dircore"]
+    out = dircore.direction_core(tok, params, H, chunk=16)
+    assert _build.launches["dircore"] == before + 1
+    _close_bf16(out, dircore.direction_core_torch(tok, params, H))
+
+
+def test_dircore_kernel_per_head_softmax(cuda):
+    """One head's logits thousands of nats above the others' must not wipe
+    them out: a single row max over all heads underflows their exponentials,
+    0 / 0 -> NaN.  Head 0's own softmax is then so sharp that bf16 rounding
+    legitimately moves it, so the property checked is a finite result."""
+    params = _dircore_params(cuda, 64, 128)
+    tok = np.random.RandomState(4).randn(8, 60, 64).astype(np.float32)
+    params["wq0"][:, :8] *= 40.0
+    params["wk0"][:, :8] *= 40.0
+    tok = torch.from_numpy(tok).to(cuda, torch.bfloat16)
+    assert torch.isfinite(dircore.direction_core_cuda(tok, params, 8)).all()
+
+
+def _va_inputs(dev, B, N, ns, c, s=8, seed=0):
+    g = np.random.RandomState(seed)
+    cs = c // s
+    bf = lambda a: torch.tensor(a, dtype=torch.float32, device=dev).to(torch.bfloat16)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    xq, xk, xv = (bf(g.randn(*shape)) for shape in ((B * N, c), (B, N, c), (B, N, c)))
+    idx = torch.tensor(g.randint(0, N, (B, N, ns)), dtype=torch.int32, device=dev)
+    pe = bf(g.randn(B * N, ns, c))
+    a0 = f32(np.stack([g.rand(c) + 0.5, g.randn(c)]))
+    a1 = f32(np.stack([g.rand(cs) + 0.5, g.randn(cs)]))
+    w0, w1 = f32(g.randn(c, cs) / np.sqrt(c)), f32(g.randn(cs, cs) / np.sqrt(cs))
+    return xq, xk, xv, idx, pe, a0, w0, a1, w1, f32(g.randn(cs))
+
+
+@pytest.mark.parametrize("B,N,ns,c", [(2, 300, 8, 64), (2, 40, 16, 512), (2, 100, 4, 8)])
+def test_vector_attention_kernel(cuda, B, N, ns, c):
+    args = _va_inputs(cuda, B, N, ns, c)
+    before = _build.launches["vector_attention"]
+    out = vector_attention.vector_attention(*args)
+    assert _build.launches["vector_attention"] == before + 1
+    _close_bf16(out, vector_attention.vector_attention_torch(*args))
+
+
+@pytest.mark.parametrize("R,c0", [(1000, 128), (300, 8)])
+def test_grouped_head_kernel(cuda, R, c0):
+    g = np.random.RandomState(1)
+    k = 86
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    h = f32(g.randn(R, c0)).to(torch.bfloat16)
+    args = (h, f32(g.randn(c0, c0 * k) / np.sqrt(c0)), f32(0.1 * g.randn(c0 * k)),
+            f32(g.randn(k, c0) / np.sqrt(c0)), f32(0.1 * g.randn(k)))
+    before = _build.launches["grouped_head"]
+    out = grouped_head.grouped_head(*args)
+    assert _build.launches["grouped_head"] == before + 1
+    _close_bf16(out, grouped_head.grouped_head_torch(*args))
+
+
 def test_wrappers_refuse_bad_inputs(cuda):
     xyz, ctr, nbr, feats, rk, sigma = _conv_inputs(cuda, 8)
     strided = feats.transpose(0, 1).contiguous().transpose(0, 1)   # same shape, not contiguous
@@ -109,3 +215,12 @@ def test_wrappers_refuse_bad_inputs(cuda):
         knn.knn_cuda(xyz.double(), xyz.double(), 4)
     with pytest.raises(ValueError):
         interconv.interconv_t_cuda(xyz, ctr, nbr, feats.cpu(), rk, sigma, 60)
+    # a bf16 / f32 mix is refused, not converted
+    args = list(_va_inputs(cuda, 1, 50, 4, 16))
+    args[1] = args[1].float()
+    with pytest.raises(TypeError):
+        vector_attention.vector_attention_cuda(*args)
+    with pytest.raises(TypeError):
+        grouped_head.grouped_head_cuda(torch.zeros((4, 8), device=cuda),
+                                       *(torch.zeros(s, device=cuda)
+                                         for s in ((8, 16), (16,), (2, 8), (2,))))
