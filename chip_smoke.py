@@ -10,27 +10,32 @@ built at first use).  Phases, each of which raises on failure:
   2. build: nvcc the kernels, print the build time and ptxas register use;
   3. kernel vs plain PyTorch version on the card, at the shapes of the main
      paths: FPS, kNN and ball-query indices must be equal, the f32 inter-conv
-     contraction and occupancy conv within 1e-5 * max|t| (f32 sums in
-     another order); the bf16 kernels (contraction on bf16 rows, occupancy
-     conv with its projection, direction core, vector attention, grouped
-     head) within 1e-2 * max|plain| at every element with a median relative
-     error |diff| / (|plain| + 1e-2) <= 1e-3 (the same rounding points,
-     another summation order); kernel and plain times side by side;
+     contraction (C >= 32 and C == 1 rows) and occupancy conv within
+     1e-5 * max|t| (f32 sums in another order); the bf16 kernels (contraction
+     on bf16 rows, C >= 32 and C == 1, occupancy conv with its projection,
+     direction core, anchor attention, vector attention, grouped head) within
+     1e-2 * max|plain| at every element with a median relative error
+     |diff| / (|plain| + 1e-2) <= 1e-3 (the same rounding points, another
+     summation order); kernel and plain times side by side;
   4. small-input reference: the serving step at tiny widths on the card
-     (kernels) against the same weights on the CPU (plain versions).  f32:
-     equal part labels, confidences within 1e-4 * (1 + max), markers within
-     1e-3, vectors and inner points within 1e-4 * (1 + max) for 99% of the
-     values and 1e-2 for all (the direction head's chordal mean is
-     ill-conditioned at random weights).  bf16 (two direction layers, so the
-     direction-core kernel runs): part labels equal for 98% of the points,
-     confidences and vector lengths (magnitude / 10) within a median
-     relative error of 1e-2 and 2e-2 * (1 + max) for all, finite outputs;
+     (kernels) against the same weights on the CPU (plain versions), in five
+     variants (SMALL_STEPS): f32; bf16 with two direction layers (the fused
+     direction core); bf16 with the tiny config's one layer (the chunked core
+     and the anchor-attention kernel); f32 and bf16 with an EPN schedule
+     whose second conv reads 1-channel rows (the C == 1 contraction).  Each
+     must launch exactly its own kernel set; tolerances in `small_step`;
   5. main paths: `build_pipeline(EtchConfig(num_point=5000, batch_size=8,
      use_bfloat16=...))` with random weights and the synthetic body,
-     `run_batch` on capsule clouds, bf16 (the configuration bench.py times)
-     and f32: one warm request, the network's stage times, then timed
-     requests; every kernel of the path's own set must have launched during
-     them and no other; then a B=1 request's latency.
+     `run_batch` on capsule clouds: bf16 (the configuration bench.py times),
+     bf16 with `direction_head.fused_core = False` (the chunked core, 40
+     anchor-attention launches a request) and f32: one warm request, the
+     network's stage times, then timed requests; every kernel of the path's
+     own set must have launched during them and no other; then a B=1
+     request's latency (not for the chunked variant);
+  6. the single-scan entry point: `python -m etch_tpu_torch.cli.infer` (its
+     `main`) on the repository's 4D-DRESS scan, f32, N=5000, synthetic body,
+     into a temporary directory: both files written with the export schema;
+     then the latency of `run_scan` on a built pipeline.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -40,9 +45,11 @@ before printing either.
 
 import importlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -53,12 +60,23 @@ MARKERSET = {f"M{i}": int(v) for i, v in enumerate(np.linspace(0, 6889, 86).asty
 INTERCONV_RTOL = 1e-5   # max |kernel - plain| <= 1e-5 * max |plain|
 BF16_ATOL = 1e-2        # bf16 kernels: max |kernel - plain| <= 1e-2 * max |plain|
 BF16_MEDIAN_REL = 1e-3  # and median |kernel - plain| / (|plain| + 1e-2) <= 1e-3
-# the kernels each serving path launches (and no others)
+# the kernels each serving path launches (and no others): f32, bf16 with the
+# fused direction core, bf16 with the chunked core (fused_core=False, or one
+# direction layer), and each with the 1-channel conv of C1_MLPS
 PATH_KERNELS = {
     "f32": ("fps", "knn", "ball_query", "interconv_ones", "interconv_t"),
     "bf16": ("fps", "knn", "ball_query", "interconv_ones_proj", "interconv_t_bf16",
              "dircore", "vector_attention", "grouped_head"),
+    "bf16_chunked": ("fps", "knn", "ball_query", "interconv_ones_proj", "interconv_t_bf16",
+                     "attention", "vector_attention", "grouped_head"),
 }
+PATH_KERNELS["f32_c1"] = PATH_KERNELS["f32"] + ("interconv_t_c1",)
+PATH_KERNELS["bf16_chunked_c1"] = PATH_KERNELS["bf16_chunked"] + ("interconv_t_c1",)
+C1_MLPS = ((1, 8), (8, 8))   # an EPN schedule whose second conv reads 1-channel rows
+SCAN = "datafolder/4D-DRESS/data_processed/model/00122_Inner_Take2_00011/00122_Inner_Take2_00011.obj"
+MARKERSET_PATH = "datafolder/useful_data_4d-dress/superset_smpl.json"
+NPZ_SHAPES = {"body_pose": (21, 3), "hand_pose": (2, 3), "betas": (10,),
+              "global_orient": (3,), "transl": (3,), "joints": (45, 3)}
 SOURCES = {  # kernel -> (source under etch_tpu_torch/csrc, the TPU kernel it replaces)
     "fps": ("fps.cu", "etch_tpu/ops/pallas_fps.py:71"),
     "knn": ("knn.cu", "etch_tpu/ops/pallas_knn.py:82"),
@@ -67,7 +85,9 @@ SOURCES = {  # kernel -> (source under etch_tpu_torch/csrc, the TPU kernel it re
     "interconv_t": ("interconv.cu", "etch_tpu/nn/pallas_interconv.py:115"),
     "interconv_ones_proj": ("interconv.cu", "etch_tpu/nn/pallas_interconv.py:160"),
     "interconv_t_bf16": ("interconv.cu", "etch_tpu/nn/pallas_interconv.py:115"),
+    "interconv_t_c1": ("interconv.cu", "etch_tpu/nn/pallas_interconv.py:183"),
     "dircore": ("dircore.cu", "etch_tpu/nn/pallas_dircore.py:153"),
+    "attention": ("attention.cu", "etch_tpu/nn/pallas_attention.py:152"),
     "vector_attention": ("vector_attention.cu",
                          "etch_tpu/nn/pallas_vector_attention.py:109"),
     "grouped_head": ("grouped_head.cu", "etch_tpu/nn/pallas_grouped_head.py:61"),
@@ -210,6 +230,18 @@ def compare_kernels(torch, dev):
               lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
               lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60))
         del feats
+    # contraction on 1-channel rows (an EPN schedule whose conv1 has C=1), at
+    # conv1's geometry
+    feats = torch.randn((B, q2500.shape[1], 60), device=dev, generator=gen)
+    ctr = q2500[:, :512].contiguous()
+    nbr = bq.ball_query_cuda(ctr, q2500, conv1["radius"], conv1["n_neighbor"])
+    rk, sg = rk_of(conv1), conv1["sigma"]
+    check("interconv_t_c1", f"B={B} P=2500 c=512 nn={conv1['n_neighbor']} C=1 f32",
+          interconv.interconv_t_c1_cuda(q2500, ctr, nbr, feats, rk, sg, 60),
+          interconv.interconv_t_c1_torch(q2500, ctr, nbr, feats, rk, sg, 60),
+          lambda: interconv.interconv_t_c1_cuda(q2500, ctr, nbr, feats, rk, sg, 60),
+          lambda: interconv.interconv_t_c1_torch(q2500, ctr, nbr, feats, rk, sg, 60))
+    del feats
     torch.cuda.empty_cache()
     compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, check_bf16)
     torch.cuda.empty_cache()
@@ -219,7 +251,7 @@ def compare_kernels(torch, dev):
 def compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, check):
     """Phase 3, the bf16 path's kernels at its main-path shapes, on random
     weights of the reference widths."""
-    from etch_tpu_torch.nn import dircore, grouped_head, interconv, vector_attention
+    from etch_tpu_torch.nn import attention, dircore, grouped_head, interconv, vector_attention
     from etch_tpu_torch.nn.point_transformer import unet_geometry
     from etch_tpu_torch.ops import ball_query
     from etch_tpu_torch.utils.config import EtchConfig, backbone_plan
@@ -251,6 +283,15 @@ def compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, ch
               lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
               lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60))
         del feats
+    spec = plan[0][1]
+    feats = randn(B, q2500.shape[1], 60).to(bf)
+    ctr = q2500[:, :512].contiguous()
+    nbr = ball_query(ctr, q2500, spec["radius"], spec["n_neighbor"])
+    rk, sg = rk_of(spec), spec["sigma"]
+    check("interconv_t_c1", f"B={B} P=2500 c=512 nn={spec['n_neighbor']} C=1 bf16",
+          lambda: interconv.interconv_t_c1_cuda(q2500, ctr, nbr, feats, rk, sg, 60),
+          lambda: interconv.interconv_t_c1_torch(q2500, ctr, nbr, feats, rk, sg, 60))
+    del feats
 
     # direction core: every point's (60, 64) tokens, 8 heads, V=128
     E, V, H = 64, 128, 8
@@ -269,6 +310,13 @@ def compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, ch
           lambda: torch.cat([dircore.direction_core_torch(tokens[s:s + 2048], params, H)
                              for s in range(0, B * N, 2048)]))
     del tokens
+
+    # anchor attention of the chunked core: one 2048-point chunk, 8 heads
+    q, k, v = (randn(2048, 60, E, scale=(E // H) ** -0.5 if i == 0 else 1.0).to(bf)
+               for i in range(3))
+    check("attention", f"Bc=2048 L=60 E={E} H={H}",
+          lambda: attention.attention_cuda(q, k, v, H),
+          lambda: attention.attention_torch(q, k, v, H))
 
     # vector attention at each U-Net level's shape (both heads' widths at level 0)
     xyz5 = xyz.contiguous()
@@ -296,74 +344,78 @@ def compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, ch
           lambda: grouped_head.grouped_head_torch(*gargs))
 
 
-def check_small_reference(torch):
-    """Phase 4, f32: tiny-width serving step, kernels on the card vs plain
-    versions on the CPU, same weights and inputs."""
+SMALL_STEPS = (  # phase 4: (label, EtchConfig.tiny overrides, kernel set on the card)
+    ("f32", {}, "f32"),
+    ("bf16, 2 direction layers", dict(use_bfloat16=True, dir_num_layers=2), "bf16"),
+    ("bf16, 1 direction layer", dict(use_bfloat16=True), "bf16_chunked"),
+    ("f32, 1-channel conv", dict(epn_mlps=C1_MLPS), "f32_c1"),
+    ("bf16, 1-channel conv", dict(use_bfloat16=True, epn_mlps=C1_MLPS), "bf16_chunked_c1"),
+)
+
+
+def small_step(torch, _build, label, overrides, path):
+    """Phase 4: the serving step at tiny widths (B=2, N=512), kernels on the
+    card against the same weights on the CPU (plain versions).  Returns the
+    card run's launch counts, which must be exactly the path's kernel set.
+
+    f32: equal part labels, confidences within 1e-4 * (1 + max), markers
+    within 1e-3, vectors and inner points within 1e-4 * (1 + max) for 99% of
+    the values and 1e-2 for all (the direction head's chordal mean is
+    ill-conditioned at random weights).  bf16: rounding to bf16 at the same
+    points in another summation order flips a rounding now and then, and the
+    flips travel through the network: part labels equal for 98% of the
+    points, confidences and vector lengths (magnitude / 10, as directions
+    are ill-conditioned) within a median relative error of 1e-2 and
+    2e-2 * (1 + max) for all, finite outputs."""
     from etch_tpu_torch.pipeline import build_pipeline
     from etch_tpu_torch.utils.config import EtchConfig
 
-    cfg = EtchConfig.tiny(num_point=512, batch_size=2)
-    pts = capsule_clouds(2, 512, seed=3)
-    outs = [build_pipeline(cfg, MARKERSET, allow_synthetic_body=True, rng_seed=0,
-                           device=d).run_batch(pts) for d in ("cuda", "cpu")]
-    gpu, cpu = [{k: v for k, v in o.items() if k != "fit_params"} for o in outs]
-    if not torch.equal(gpu["part_labels"].cpu(), cpu["part_labels"]):
-        raise AssertionError("small reference: part labels differ")
-    worst = {}
-    for key in ("vectors", "inner_points", "confidences", "markers"):
-        err = (gpu[key].cpu() - cpu[key]).abs()
-        bound = 1e-4 * (1 + cpu[key].abs().max().item())
-        worst[key] = err.max().item()
-        if key in ("vectors", "inner_points"):
-            # at random weights the chordal mean of the direction head nearly
-            # cancels for some points, and its projection amplifies rounding
-            ok = err.flatten().quantile(0.99).item() <= bound and worst[key] <= 1e-2
-        else:
-            ok = worst[key] <= (1e-3 if key == "markers" else bound)
-        if not ok:
-            raise AssertionError(f"small reference: {key} differs by {worst[key]}")
-    print("small reference f32 (B=2, N=512, tiny widths), card vs CPU max abs err:",
-          json.dumps(worst))
-
-
-def check_small_reference_bf16(torch):
-    """Phase 4, bf16: the same step with use_bfloat16 and two direction
-    layers (so the direction-core kernel runs), card vs CPU.  Rounding to
-    bf16 at the same points in another summation order flips a rounding now
-    and then, and the flips travel through the network: the comparison
-    allows them, and checks vector lengths (magnitude / 10) rather than
-    vectors, whose directions are ill-conditioned at random weights."""
-    from etch_tpu_torch import _build
-    from etch_tpu_torch.pipeline import build_pipeline
-    from etch_tpu_torch.utils.config import EtchConfig
-
-    cfg = EtchConfig.tiny(num_point=512, batch_size=2, use_bfloat16=True, dir_num_layers=2)
+    cfg = EtchConfig.tiny(num_point=512, batch_size=2, **overrides)
     pts = capsule_clouds(2, 512, seed=3)
     _build.reset_launch_counts()
     gpu = build_pipeline(cfg, MARKERSET, allow_synthetic_body=True, rng_seed=0,
                          device="cuda").run_batch(pts)
-    ran = {k for k, v in _build.launches.items() if v}
-    if ran != set(PATH_KERNELS["bf16"]):
-        raise AssertionError(f"small reference bf16: kernels launched {sorted(ran)}")
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    ran = {k for k, v in launches.items() if v}
+    if ran != set(PATH_KERNELS[path]):
+        raise AssertionError(f"small reference {label}: kernels launched {sorted(ran)}, "
+                             f"expected {sorted(PATH_KERNELS[path])}")
     cpu = build_pipeline(cfg, MARKERSET, allow_synthetic_body=True, rng_seed=0,
                          device="cpu").run_batch(pts)
-    agree = (gpu["part_labels"].cpu() == cpu["part_labels"]).float().mean().item()
-    report = {"part_label_agreement": agree}
-    for key, a, b in (("confidences", gpu["confidences"].cpu(), cpu["confidences"]),
-                      ("vector_length", gpu["vectors"].cpu().norm(dim=-1),
-                       cpu["vectors"].norm(dim=-1))):
-        err = (a - b).abs()
-        med = (err / (b.abs() + 1e-2)).median().item()
-        report[key] = {"median_rel": med, "max_abs": err.max().item()}
-        if not (med <= 1e-2 and err.max().item() <= 2e-2 * (1 + b.abs().max().item())):
-            raise AssertionError(f"small reference bf16: {key} {report[key]}")
-    for key in ("vectors", "inner_points", "markers", "verts", "joints"):
+    for key in ("vectors", "inner_points", "confidences", "markers", "verts", "joints"):
         if not torch.isfinite(gpu[key]).all():
-            raise AssertionError(f"small reference bf16: {key} not finite")
-    if agree < 0.98:
-        raise AssertionError(f"small reference bf16: part labels agree on {agree:.4f}")
-    print("small reference bf16 (B=2, N=512, tiny widths, 2 direction layers), "
-          "card vs CPU:", json.dumps(report))
+            raise AssertionError(f"small reference {label}: {key} not finite")
+    if cfg.use_bfloat16:
+        agree = (gpu["part_labels"].cpu() == cpu["part_labels"]).float().mean().item()
+        report = {"part_label_agreement": agree}
+        for key, a, b in (("confidences", gpu["confidences"].cpu(), cpu["confidences"]),
+                          ("vector_length", gpu["vectors"].cpu().norm(dim=-1),
+                           cpu["vectors"].norm(dim=-1))):
+            err = (a - b).abs()
+            med = (err / (b.abs() + 1e-2)).median().item()
+            report[key] = {"median_rel": med, "max_abs": err.max().item()}
+            if not (med <= 1e-2 and err.max().item() <= 2e-2 * (1 + b.abs().max().item())):
+                raise AssertionError(f"small reference {label}: {key} {report[key]}")
+        if agree < 0.98:
+            raise AssertionError(f"small reference {label}: part labels agree on {agree:.4f}")
+    else:
+        if not torch.equal(gpu["part_labels"].cpu(), cpu["part_labels"]):
+            raise AssertionError(f"small reference {label}: part labels differ")
+        report = {}
+        for key in ("vectors", "inner_points", "confidences", "markers"):
+            err = (gpu[key].cpu() - cpu[key]).abs()
+            bound = 1e-4 * (1 + cpu[key].abs().max().item())
+            report[key] = err.max().item()
+            if key in ("vectors", "inner_points"):
+                ok = err.flatten().quantile(0.99).item() <= bound and report[key] <= 1e-2
+            else:
+                ok = report[key] <= (1e-3 if key == "markers" else bound)
+            if not ok:
+                raise AssertionError(f"small reference {label}: {key} differs by {report[key]}")
+    print(f"small reference {label} (B=2, N=512, tiny widths), card vs CPU: "
+          f"{json.dumps(report)}; launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    return launches
 
 
 def run_requests(torch, pipe, pts, n):
@@ -408,35 +460,43 @@ def stage_times(torch, pipe, pts):
     return ms
 
 
-def main_path(torch, _build, dtype):
-    """Phase 5 for one serving path: returns the launch counts of its timed
-    requests."""
+def main_path(torch, _build, path, latency=True):
+    """Phase 5 for one serving path ("bf16", "bf16_chunked" or "f32"):
+    returns (launch counts of its timed requests, its stage times)."""
     from etch_tpu_torch.pipeline import build_pipeline
     from etch_tpu_torch.utils.config import EtchConfig
 
-    bf16 = dtype == "bf16"
+    bf16 = path != "f32"
     t0 = time.perf_counter()
     pipe = build_pipeline(EtchConfig(num_point=N, batch_size=B, use_bfloat16=bf16),
                           MARKERSET, allow_synthetic_body=True, rng_seed=0, device="cuda")
+    pipe.model.direction_head.fused_core = path != "bf16_chunked"
     # vector-attention layers per request: two U-Nets whose level l runs
-    # blocks[l] - 1 encoder blocks and one decoder block (36 at full depth)
+    # blocks[l] - 1 encoder blocks and one decoder block (36 at full depth);
+    # anchor attentions per request on the chunked route: one per direction
+    # layer and chunk of dir_chunk points (2 x 20 at full width)
     va_layers = 2 * sum(pipe.cfg.unet_blocks)
+    attn_calls = pipe.cfg.dir_num_layers * -(-B * N // pipe.cfg.dir_chunk)
     pts = capsule_clouds(B, N)
-    print(f"build_pipeline {dtype}: {time.perf_counter() - t0:.1f} s")
+    print(f"build_pipeline {path}: {time.perf_counter() - t0:.1f} s")
     _, warm = run_requests(torch, pipe, pts, 1)
-    print(f"stage ms B={B} {dtype}: {json.dumps(stage_times(torch, pipe, pts))}")
+    stages = stage_times(torch, pipe, pts)
+    print(f"stage ms B={B} {path}: {json.dumps(stages)}")
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     out, times = run_requests(torch, pipe, pts, TIMED_REQUESTS)
     launches = dict(_build.launches)
-    print(f"launches during {TIMED_REQUESTS} {dtype} requests: {json.dumps(launches)}")
+    print(f"launches during {TIMED_REQUESTS} {path} requests: {json.dumps(launches)}")
     ran = {k for k, v in launches.items() if v}
-    if ran != set(PATH_KERNELS[dtype]):
-        raise AssertionError(f"{dtype} main path: kernels launched {sorted(ran)}, "
-                             f"expected {sorted(PATH_KERNELS[dtype])}")
+    if ran != set(PATH_KERNELS[path]):
+        raise AssertionError(f"{path} main path: kernels launched {sorted(ran)}, "
+                             f"expected {sorted(PATH_KERNELS[path])}")
     if bf16 and launches["vector_attention"] != va_layers * TIMED_REQUESTS:
         raise AssertionError(f"vector_attention launched {launches['vector_attention']} "
                              f"times in {TIMED_REQUESTS} requests")
+    if launches["attention"] != (attn_calls * TIMED_REQUESTS if "attention" in ran else 0):
+        raise AssertionError(f"attention launched {launches['attention']} times in "
+                             f"{TIMED_REQUESTS} requests")
     shapes = {"vectors": (B, N, 3), "inner_points": (B, N, 3), "part_labels": (B, N),
               "confidences": (B, N, 1), "markers": (B, 86, 3), "markers_valid": (B, 86),
               "verts": (B, 6890, 3), "joints": (B, 45, 3)}
@@ -445,21 +505,79 @@ def main_path(torch, _build, dtype):
             raise AssertionError(f"{key}: shape {tuple(out[key].shape)} != {shape}")
     for key in ("vectors", "confidences", "markers", "verts", "joints"):
         if not torch.isfinite(out[key]).all():
-            raise AssertionError(f"{dtype} {key}: non-finite values")
+            raise AssertionError(f"{path} {key}: non-finite values")
     med = statistics.median(times)
-    print(f"run_batch B={B} N={N} {dtype}: warm {warm[0]:.1f} ms, timed ms "
+    print(f"run_batch B={B} N={N} {path}: warm {warm[0]:.1f} ms, timed ms "
           f"{[round(t, 2) for t in times]}, median {med:.2f} ms/batch, "
           f"{B * 1e3 / med:.2f} scans/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del pipe, out
     torch.cuda.empty_cache()
 
-    pipe1 = build_pipeline(EtchConfig(num_point=N, batch_size=1, use_bfloat16=bf16),
-                           MARKERSET, allow_synthetic_body=True, rng_seed=0, device="cuda")
-    run_requests(torch, pipe1, pts[:1], 1)
-    _, times1 = run_requests(torch, pipe1, pts[:1], TIMED_REQUESTS)
-    print(f"run_batch B=1 {dtype} latency: ms {[round(t, 2) for t in times1]}, median "
-          f"{statistics.median(times1):.2f} ms")
+    if latency:
+        pipe1 = build_pipeline(EtchConfig(num_point=N, batch_size=1, use_bfloat16=bf16),
+                               MARKERSET, allow_synthetic_body=True, rng_seed=0,
+                               device="cuda")
+        run_requests(torch, pipe1, pts[:1], 1)
+        _, times1 = run_requests(torch, pipe1, pts[:1], TIMED_REQUESTS)
+        print(f"run_batch B=1 {path} latency: ms {[round(t, 2) for t in times1]}, median "
+              f"{statistics.median(times1):.2f} ms")
+    return launches, stages
+
+
+def entry_point(torch, _build):
+    """Phase 6: the single-scan CLI on the repository's scan (f32, B=1,
+    N=5000, random weights, synthetic body) into a temporary directory, then
+    the latency of `run_scan` on a built pipeline.  Returns the CLI run's
+    launch counts."""
+    from etch_tpu_torch.cli import infer
+    from etch_tpu_torch.data.mesh import load_obj
+    from etch_tpu_torch.pipeline import build_pipeline, load_markerset
+    from etch_tpu_torch.utils.config import EtchConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    scan, markerset = os.path.join(root, SCAN), os.path.join(root, MARKERSET_PATH)
+    with tempfile.TemporaryDirectory() as tmp:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        obj, npz = infer.main(["--scan_path", scan, "--markerset_path", markerset,
+                               "--allow_synthetic_body", "--device", "cuda",
+                               "--output_folder", tmp])
+        cli_s = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        ran = {k for k, v in launches.items() if v}
+        if ran != set(PATH_KERNELS["f32"]):
+            raise AssertionError(f"cli/infer: kernels launched {sorted(ran)}")
+        stem = os.path.splitext(os.path.basename(SCAN))[0]
+        if (os.path.basename(obj), os.path.basename(npz)) != (
+                f"{stem}_pred_smpl.obj", f"{stem}_output_smpl_info.npz"):
+            raise AssertionError(f"cli/infer wrote {obj}, {npz}")
+        info = np.load(npz)
+        shapes = {k: info[k].shape for k in info.files}
+        if shapes != NPZ_SHAPES or not all(np.isfinite(info[k]).all() for k in info.files):
+            raise AssertionError(f"cli/infer npz: {shapes}")
+        verts = load_obj(obj).vertices
+        if verts.shape != (6890, 3) or not np.isfinite(verts).all():
+            raise AssertionError(f"cli/infer obj: vertices {verts.shape}")
+    print(f"cli/infer (B=1, N={N}, f32, first call in its process): {cli_s:.2f} s, wrote "
+          f"{os.path.basename(obj)} and {os.path.basename(npz)}; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}")
+
+    pipe = build_pipeline(EtchConfig(num_point=N), load_markerset(markerset),
+                          allow_synthetic_body=True, device="cuda")
+    pipe.run_scan(scan, seed=0)
+    times, load = [], []
+    for _ in range(TIMED_REQUESTS):
+        t0 = time.perf_counter()
+        load_obj(scan)
+        load.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        pipe.run_scan(scan, seed=0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"run_scan B=1 N={N} f32 latency: ms {[round(t, 2) for t in times]}, median "
+          f"{statistics.median(times):.2f} ms (of which the OBJ parse alone: median "
+          f"{statistics.median(load):.2f} ms)")
     return launches
 
 
@@ -494,15 +612,33 @@ def main():
     print("kernel vs plain PyTorch on the card:")
     kernels = compare_kernels(torch, dev)
 
-    # 4. small-input reference
-    check_small_reference(torch)
-    check_small_reference_bf16(torch)
+    # 4. small-input reference; the 1-channel body runs only here
+    launches = {}
+    for label, overrides, path in SMALL_STEPS:
+        counts = small_step(torch, _build, label, overrides, path)
+        if path.endswith("_c1"):
+            launches["interconv_t_c1"] = launches.get("interconv_t_c1", 0) + counts[
+                "interconv_t_c1"]
 
-    # 5. main paths at full width: bf16 (what bench.py times), then f32
-    launches = main_path(torch, _build, "bf16")
-    launches.update({k: v for k, v in main_path(torch, _build, "f32").items()
-                     if k not in PATH_KERNELS["bf16"]})
+    # 5. main paths at full width: bf16 (what bench.py times), bf16 with the
+    # chunked direction core, then f32; each kernel's count from the first
+    # path that runs it
+    stages = {}
+    for path in ("bf16", "bf16_chunked", "f32"):
+        counts, stages[path] = main_path(torch, _build, path,
+                                         latency=path != "bf16_chunked")
+        for k in PATH_KERNELS[path]:
+            launches.setdefault(k, counts[k])
+    print(f"direction head ms B={B}: fused {stages['bf16']['direction_head']}, chunked "
+          f"{stages['bf16_chunked']['direction_head']}; forward fused "
+          f"{stages['bf16']['forward']}, chunked {stages['bf16_chunked']['forward']}")
 
+    # 6. the single-scan entry point
+    entry_point(torch, _build)
+
+    idle = [name for name in SOURCES if not launches.get(name)]
+    if idle:
+        raise AssertionError(f"kernels never launched on a path: {idle}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"etch_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[name], **kernels[name]}

@@ -51,12 +51,17 @@ _SIGNATURES = {
     "etch_vector_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _I, _P),
     "etch_grouped_head": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "etch_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "etch_interconv_t_c1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "etch_interconv_t_c1_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                 _P),
 }
 
 # Launches per kernel since the last reset_launch_counts().
 launches = {"fps": 0, "knn": 0, "ball_query": 0, "interconv_ones": 0,
             "interconv_t": 0, "interconv_ones_proj": 0, "interconv_t_bf16": 0,
-            "dircore": 0, "vector_attention": 0, "grouped_head": 0}
+            "interconv_t_c1": 0, "dircore": 0, "attention": 0, "vector_attention": 0,
+            "grouped_head": 0}
 
 
 def reset_launch_counts() -> None:

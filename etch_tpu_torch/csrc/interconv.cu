@@ -2,8 +2,9 @@
 //
 // Replaces etch_tpu/nn/pallas_interconv.py:interconv_t_pallas, bodies _kernel
 // (C >= 32 feature contraction, f32 or bf16 features), _kernel_ones (all-ones
-// occupancy input) and _kernel_ones_proj (occupancy input with the (K -> Co)
-// projection fused in, bf16 serving path).  For a center p with neighbours
+// occupancy input), _kernel_ones_proj (occupancy input with the (K -> Co)
+// projection fused in, bf16 serving path) and _kernel_c1 (1-channel feature
+// rows that are not the occupancy input).  For a center p with neighbours
 // n = nbr[p, 0..nn):
 //
 //   x_pn       = xyz[nbr[p, n]] - center[p]
@@ -11,6 +12,7 @@
 //   t[p,a,k,c] = sum_n w[n, a, k] * feats[nbr[p, n], a*C + c]  (contraction)
 //   t[p,a,k]   = sum_n w[n, a, k]                             (occupancy)
 //   o[p,a,o]   = sum_k bf16(t[p,a,k]) * bf16(W[k, o])          (ones_proj)
+//   t[p,a,k]   = sum_n w[n, a, k] * feats[nbr[p, n], a]        (C == 1)
 //
 // bf16 features (the serving path's streaming type): w is rounded to bf16
 // before the multiply, as _kernel does before its bf16 MXU dot, the sums stay
@@ -45,6 +47,14 @@
 // plain occupancy kernel is (nn*A*K = 92 K weights per center); its
 // projection adds A*K*Co = 46 K FMAs per center out of shared memory and
 // removes the (B, c, A, K) f32 intermediate and the separate projection.
+//
+// The C == 1 body keeps _kernel_c1's rounding: w is the exact f32 weight
+// (not rounded to bf16, unlike the C >= 32 body), the products and sums are
+// f32, and t is rounded to bf16 only on bf16 rows.  The TPU kernel expands
+// the (nn, A) rows to (nn, A*K) lanes with a one-hot matmul; here one thread
+// owns an (a, k) column and reads its anchor's feature from the block's
+// gathered (nn, A) rows in shared memory.  Bound as the occupancy kernel:
+// nn*A*K = 92 K weights per center, one shared-memory read each more.
 #include "common.cuh"
 
 namespace {
@@ -203,6 +213,54 @@ __global__ void interconv_ones_proj_kernel(const float* __restrict__ xyz,      /
   }
 }
 
+// grid (c, B); one thread per (a, k) output column.  T: feature and output
+// type (float, or bf16 rows with f32 sums and a bf16 t).
+template <typename T>
+__global__ void interconv_c1_kernel(const float* __restrict__ xyz,      // (B, P, 3)
+                                    const float* __restrict__ centers,  // (B, c, 3)
+                                    const int32_t* __restrict__ nbr,    // (B, c, nn)
+                                    const T* __restrict__ feats,        // (B, P, A)
+                                    const float* __restrict__ rk,       // (A*K, 3)
+                                    T* __restrict__ out,                // (B, c, A*K)
+                                    int P, int c, int nn, int A, int K, float sigma) {
+  extern __shared__ float smem[];
+  float* gx = smem;                                    // nn * 3
+  float* fs = gx + nn * 3;                             // nn * A
+  int* sidx = reinterpret_cast<int*>(fs + nn * A);     // nn
+  const int p = blockIdx.x, b = blockIdx.y;
+  const size_t bp = static_cast<size_t>(b) * c + p;
+  load_offsets(xyz + static_cast<size_t>(b) * P * 3, centers + bp * 3, nbr + bp * nn, nn,
+               gx, sidx);
+  __syncthreads();
+  const T* fb = feats + static_cast<size_t>(b) * P * A;
+  for (int e = threadIdx.x; e < nn * A; e += blockDim.x) {
+    const int n = e / A, a = e % A;
+    fs[e] = etch_f32(fb[static_cast<size_t>(sidx[n]) * A + a]);
+  }
+  __syncthreads();
+  T* ob = out + bp * static_cast<size_t>(A) * K;
+  for (int e = threadIdx.x; e < A * K; e += blockDim.x) {
+    const float rv[3] = {rk[3 * e], rk[3 * e + 1], rk[3 * e + 2]};
+    const float* fa = fs + e / K;
+    float acc = 0.f;
+    for (int n = 0; n < nn; ++n) acc = fmaf(kernel_weight(gx + 3 * n, rv, sigma), fa[n * A], acc);
+    etch_store(ob + e, acc);
+  }
+}
+
+template <typename T>
+int launch_interconv_c1(const float* xyz, const float* centers, const int32_t* nbr,
+                        const void* feats, const float* rk, void* out, int b, int P, int c,
+                        int nn, int A, int K, float sigma, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(nn) * (3 + A + 1) * sizeof(float);
+  cudaError_t err = etch_allow_smem(interconv_c1_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  interconv_c1_kernel<T><<<dim3(c, b), 256, smem, stream>>>(
+      xyz, centers, nbr, static_cast<const T*>(feats), rk, static_cast<T*>(out), P, c, nn, A,
+      K, sigma);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_interconv_t(const float* xyz, const float* centers, const int32_t* nbr,
                        const void* feats, const float* rk, void* out, int b, int P, int c,
@@ -265,4 +323,22 @@ ETCH_API int etch_interconv_ones_proj(const float* xyz, const float* centers,
       xyz, centers, nbr, rk, static_cast<const bf16*>(w), static_cast<bf16*>(out), P, c, nn, A,
       K, Co, sigma);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Contraction on 1-channel rows: feats (b, P, A) f32, out (b, c, A*K) f32.
+ETCH_API int etch_interconv_t_c1(const float* xyz, const float* centers, const int32_t* nbr,
+                                 const float* feats, const float* rk, float* out, int b, int P,
+                                 int c, int nn, int A, int K, float sigma,
+                                 cudaStream_t stream) {
+  return launch_interconv_c1<float>(xyz, centers, nbr, feats, rk, out, b, P, c, nn, A, K,
+                                    sigma, stream);
+}
+
+// The same on bf16 rows: exact f32 weights and sums, bf16 t.
+ETCH_API int etch_interconv_t_c1_bf16(const float* xyz, const float* centers,
+                                      const int32_t* nbr, const void* feats, const float* rk,
+                                      void* out, int b, int P, int c, int nn, int A, int K,
+                                      float sigma, cudaStream_t stream) {
+  return launch_interconv_c1<bf16>(xyz, centers, nbr, feats, rk, out, b, P, c, nn, A, K,
+                                   sigma, stream);
 }

@@ -18,7 +18,8 @@ from torch import nn
 
 from etch_tpu_torch.geometry.icosahedral import get_anchors
 from etch_tpu_torch.geometry.so3 import project_to_so3
-from etch_tpu_torch.nn.dircore import direction_core
+from etch_tpu_torch.nn.attention import attention, attention_torch
+from etch_tpu_torch.nn.dircore import direction_core, direction_core_chunked
 from etch_tpu_torch.nn.epn import EPNBackbone, InterSO3Conv, IntraSO3Conv
 from etch_tpu_torch.nn.point_transformer import (BatchNorm, PointTransformerLayer,
                                                  PointTransformerSeg, unet_geometry)
@@ -31,14 +32,22 @@ class DirectionHead(nn.Module):
     models_pointcloud.py:52-54,111-126): per point, MHSA over the 60 anchor
     tokens -> MLP -> scalar anchor weights -> weighted chordal mean of the
     anchor rotations -> its third column (R @ [0, 0, 1]).  With dtype=bf16
-    the tokens are cast to bf16 up front and the core runs the bf16 policy
-    (the CUDA kernel on the card); the chordal mean and the SO(3) projection
-    stay f32."""
+    the tokens are cast to bf16 up front; the chordal mean and the SO(3)
+    projection stay f32.
+
+    The core runs by the JAX package's two routes (`nn/dircore.py`): the
+    fused core when the tokens are bf16, there are two layers and
+    `fused_core` is set (the counterpart of `ETCH_DIRCORE_PALLAS`, an
+    attribute here, not an environment variable); otherwise the chunked
+    core over `chunk` points, whose attention is the kernel of
+    `nn/attention.py` for bf16 tokens and plain f32 for f32 tokens."""
 
     def __init__(self, embed_dim: int, value_dim: int = 128, num_heads: int = 8,
-                 num_layers: int = 2, chunk: int = 2048, dtype=None):
+                 num_layers: int = 2, chunk: int = 2048, dtype=None,
+                 fused_core: bool = True):
         super().__init__()
-        self.num_heads, self.chunk, self.dtype = num_heads, chunk, dtype
+        self.num_heads, self.num_layers, self.chunk = num_heads, num_layers, chunk
+        self.dtype, self.fused_core = dtype, fused_core
         E, V = embed_dim, value_dim
         for l in range(num_layers):
             out_d = V if l == num_layers - 1 else E
@@ -56,14 +65,19 @@ class DirectionHead(nn.Module):
         self.register_buffer("anchors", torch.from_numpy(np.ascontiguousarray(anchors)),
                              persistent=False)
 
+    def anchor_weights(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (M, A, C) -> (M, A) f32 anchor weights."""
+        params = dict(self.named_parameters())
+        x = tokens if self.dtype is None else tokens.to(self.dtype).contiguous()
+        if self.fused_core and x.dtype == torch.bfloat16 and self.num_layers == 2:
+            return direction_core(x, params, self.num_heads, self.chunk)
+        attn = attention if x.dtype == torch.bfloat16 else attention_torch
+        return direction_core_chunked(x, params, self.num_heads, self.chunk, attn)
+
     def forward(self, equiv_feat: torch.Tensor) -> torch.Tensor:
         """equiv_feat (B, N, A, C) -> unit directions (B, N, 3)."""
         B, N, A, C = equiv_feat.shape
-        params = dict(self.named_parameters())
-        x = equiv_feat.reshape(B * N, A, C)
-        if self.dtype is not None:
-            x = x.to(self.dtype).contiguous()
-        w = direction_core(x, params, self.num_heads, self.chunk)  # (M, A) f32
+        w = self.anchor_weights(equiv_feat.reshape(B * N, A, C))
         R = project_to_so3((w @ self.anchors).reshape(B * N, 3, 3))
         return R[..., :, 2].reshape(B, N, 3)
 

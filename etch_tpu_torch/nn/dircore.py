@@ -1,23 +1,27 @@
-"""Direction-head core: plain PyTorch and the CUDA kernel.
+"""Direction-head core: the two routes of the JAX package, plain and on the
+card.
 
-Port of `etch_tpu/nn/pallas_dircore.py` (`direction_core_ref`,
-`direction_core_pallas`) and `etch_tpu/nn/pallas_attention.py:attention_ref`.
-Per point, on its (A, E) anchor tokens: stacked multi-head self-attention
-(residual on all but the last layer) -> BatchMLP -> Dense(1), giving (A,)
-anchor weights.
+Port of `etch_tpu/nn/pallas_dircore.py`.  Per point, on its (A, E) anchor
+tokens: stacked multi-head self-attention (residual on all but the last
+layer) -> BatchMLP -> Dense(1), giving (A,) anchor weights.  The JAX package
+runs it by one of two routes (`models/etch_net.py:96-130`), which round in
+different places; the port keeps both, each with its own rounding:
 
-  - f32 tokens (the f32 serving path): full f32, as the JAX package's f32
-    path runs it; the plain version is the only one (the JAX package has no
-    f32 kernel either).
-  - bf16 tokens (the bf16 serving path): the rounding points of the TPU
-    kernel (`_kernel`): weights, q (scaled by 1/sqrt(hs)), k, v, the
-    attention weights, the attention output, each layer's output and the
-    MLP hidden layer are rounded to bf16; logits, softmax, sums and the
-    final Dense(1) stay f32.  `direction_core_cuda` runs this on the card
-    (`csrc/dircore.cu`), for two layers.
-
-Attention is written out per head (einsum + softmax), not through a fused
-library operator; its softmax max is per head, as the kernel's.
+  - the fused core (`direction_core_pallas`, `_kernel`): bf16 tokens, two
+    layers.  Its rounding points: the weights, q (scaled by 1/sqrt(hs)),
+    k, v, the attention weights, the attention output, each layer's output
+    and the MLP hidden layer are rounded to bf16; logits, softmax, sums and
+    the final Dense(1) stay f32.  `direction_core_cuda` runs it on the card
+    (`csrc/dircore.cu`); `direction_core_torch` is its plain twin, which
+    `direction_core` takes for CPU tensors.
+  - the chunked core (`direction_core_ref`), every other case: chunks of
+    `chunk` points, f32 weights times bf16-valued activations with f32
+    products (JAX promotes bf16 @ f32 to f32, at the f32 matmul precision
+    the package forces); rounded to bf16 are only q (after the scale), k, v,
+    the attention output, each layer's output and the MLP hidden layer.  The
+    attention is a function argument: `nn/attention.py::attention` (the
+    kernel on the card) for bf16 tokens, `attention_torch` for f32 tokens.
+    With f32 tokens no value is rounded: this is the f32 serving path.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from etch_tpu_torch import _build
+from etch_tpu_torch.nn.attention import attention_torch
 from etch_tpu_torch.nn.bf16 import BF16, mm, rnd
 
 # csrc/dircore.cu compiles these widths in; narrower heads are zero-padded
@@ -35,31 +40,19 @@ _ROWS, _E, _V = 64, 64, 128
 _HEAD_SIZES = (1, 2, 4, 8, 16)
 
 
-def attention_torch(q, k, v, num_heads: int):
-    """Per-head attention, (Bc, L, E) -> (Bc, L, E) f32; q pre-scaled by
-    1/sqrt(head_size).  bf16 inputs: f32 logits and softmax, attention
-    weights rounded to bf16."""
-    Bc, L, E = q.shape
-    hs = E // num_heads
-    bf16 = q.dtype == BF16
-
-    def split(t):
-        return t.float().reshape(Bc, L, num_heads, hs).transpose(1, 2)
-
-    logits = torch.einsum("bhqd,bhkd->bhqk", split(q), split(k))
-    attn = rnd(torch.softmax(logits, dim=-1), bf16)
-    out = torch.einsum("bhqk,bhkd->bhqd", attn, split(v))
-    return out.transpose(1, 2).reshape(Bc, L, E)
+def _num_layers(params) -> int:
+    return len([k for k in params if k.startswith("wq")])
 
 
 def direction_core_torch(tokens, params, num_heads: int):
-    """tokens (Bc, A, E) f32 or bf16; params: dict of the explicit head
-    weights (wq{l}, wk{l}, wv{l}, wc{l}, bc{l}, wm0, bm0, wm1, bm1, wr, br) in
-    the JAX layout (in, out), f32.  Returns (Bc, A) f32 anchor weights."""
+    """The fused core's plain twin.  tokens (Bc, A, E) f32 or bf16; params:
+    dict of the explicit head weights (wq{l}, wk{l}, wv{l}, wc{l}, bc{l},
+    wm0, bm0, wm1, bm1, wr, br) in the JAX layout (in, out), f32.  Returns
+    (Bc, A) f32 anchor weights."""
     bf16 = tokens.dtype == BF16
     h = tokens.float()
     scale = 1.0 / math.sqrt(h.shape[-1] // num_heads)
-    n_layers = len([k for k in params if k.startswith("wq")])
+    n_layers = _num_layers(params)
     for l in range(n_layers):
         q = rnd(mm(h, params[f"wq{l}"], bf16) * scale, bf16)
         k = rnd(mm(h, params[f"wk{l}"], bf16), bf16)
@@ -71,6 +64,32 @@ def direction_core_torch(tokens, params, num_heads: int):
     h = rnd(torch.relu(mm(h, params["wm0"], bf16) + params["bm0"]), bf16)
     h = mm(h, params["wm1"], bf16) + params["bm1"]
     return (h @ params["wr"])[..., 0] + params["br"]
+
+
+def _chunk_core(tokens, params, num_heads: int, attn):
+    """`direction_core_ref` on one chunk: (Bc, A, E) -> (Bc, A) f32."""
+    bf16 = tokens.dtype == BF16
+    h = tokens.float()
+    scale = 1.0 / math.sqrt(h.shape[-1] // num_heads)
+    n_layers = _num_layers(params)
+    for l in range(n_layers):
+        q = rnd((h @ params[f"wq{l}"]) * scale, bf16).to(tokens.dtype)
+        k = rnd(h @ params[f"wk{l}"], bf16).to(tokens.dtype)
+        v = rnd(h @ params[f"wv{l}"], bf16).to(tokens.dtype)
+        att = rnd(attn(q, k, v, num_heads), bf16)
+        y = att @ params[f"wc{l}"] + params[f"bc{l}"]
+        h = rnd(y if l == n_layers - 1 else h + y, bf16)
+    h = rnd(torch.relu(h @ params["wm0"] + params["bm0"]), bf16)
+    h = h @ params["wm1"] + params["bm1"]
+    return (h @ params["wr"])[..., 0] + params["br"]
+
+
+def direction_core_chunked(tokens, params, num_heads: int, chunk: int, attn):
+    """The chunked core: (M, A, E) tokens -> (M, A) f32 anchor weights, over
+    chunks of `chunk` points, which bound the (chunk, H, A, A) logits of a
+    plain attention.  `attn(q, k, v, num_heads)` -> (Bc, A, E) f32."""
+    return torch.cat([_chunk_core(tokens[s:s + chunk], params, num_heads, attn)
+                      for s in range(0, tokens.shape[0], chunk)])
 
 
 def _pad(t, *shape):
@@ -89,7 +108,7 @@ def direction_core_cuda(tokens, params, num_heads: int):
     M, A, E = tokens.shape
     V = params["wm0"].shape[0]
     hs = E // num_heads
-    n_layers = len([k for k in params if k.startswith("wq")])
+    n_layers = _num_layers(params)
     if n_layers != 2:
         raise ValueError(f"dircore: the kernel runs 2 layers, got {n_layers}")
     if A > _ROWS or E > _E or V > _V or hs not in _HEAD_SIZES or hs * num_heads != E:
@@ -112,15 +131,12 @@ def direction_core_cuda(tokens, params, num_heads: int):
 
 
 def direction_core(tokens, params, num_heads: int, chunk: int):
-    """(M, A, E) tokens -> (M, A) anchor weights.  The kernel for bf16
-    tokens on the card with two layers, in one call over all points, as the
-    JAX package dispatches (`models/etch_net.py:96-102`); otherwise the plain
-    version over chunks of `chunk` points, which bound its (chunk, H, A, A)
-    logits."""
-    n_layers = len([k for k in params if k.startswith("wq")])
-    if tokens.is_cuda and tokens.dtype == BF16 and n_layers == 2:
+    """The fused core: (M, A, E) bf16 tokens, two layers -> (M, A) anchor
+    weights.  On the card the kernel, in one call over all points; on the
+    CPU its plain twin over chunks of `chunk` points."""
+    if tokens.is_cuda:
         return direction_core_cuda(tokens, params, num_heads)
-    if tokens.device.type not in ("cpu", "cuda"):
+    if tokens.device.type != "cpu":
         raise ValueError(f"dircore: unsupported device {tokens.device}")
     return torch.cat([direction_core_torch(tokens[s:s + chunk], params, num_heads)
                       for s in range(0, tokens.shape[0], chunk)])

@@ -1,21 +1,27 @@
 """Inter-SO(3)-conv contraction: plain versions and kernel launches.
 
 Port of `etch_tpu/nn/pallas_interconv.py` (`interconv_t_pallas`, bodies
-`_kernel`, `_kernel_ones` and `_kernel_ones_proj`).  Unlike the JAX contract,
-which takes pre-gathered relative coordinates and feature rows, the
-functions here take the neighbour indices and gather themselves, so the CUDA
-kernels (`csrc/interconv.cu`) can fuse both gathers:
+`_kernel`, `_kernel_ones`, `_kernel_ones_proj` and `_kernel_c1`).  Unlike
+the JAX contract, which takes pre-gathered relative coordinates and feature
+rows, the functions here take the neighbour indices and gather themselves,
+so the CUDA kernels (`csrc/interconv.cu`) can fuse both gathers:
 
     x_pn       = xyz[nbr[p, n]] - centers[p]
     w[p,n,a,k] = relu(1 - |x_pn - rk[a*K + k]|^2 / sigma)
     t[p,a,k,c] = sum_n w[p,n,a,k] * feats[nbr[p, n], a*C + c]   (interconv_t)
+    t[p,a,k]   = sum_n w[p,n,a,k] * feats[nbr[p, n], a]       (interconv_t_c1)
     t[p,a,k]   = sum_n w[p,n,a,k]                             (interconv_ones)
     o[p,a,o]   = sum_k bf16(t[p,a,k]) * bf16(W[k, o])         (interconv_ones_proj)
 
 With bf16 feature rows (the serving path) `interconv_t` rounds w to bf16
 before the multiply, sums in f32 and returns t as bf16, as the TPU kernel
-does; `interconv_ones_proj` returns bf16 too.  The weights w are exact
-(the TPU's approximate `fast_w` variant is not ported).
+does; `interconv_ones_proj` returns bf16 too.  `interconv_t` sends
+1-channel rows (C == 1, rows that are not the occupancy input: an EPN
+schedule with a 1-channel conv after the first) to `interconv_t_c1`, which
+keeps `_kernel_c1`'s rounding: w exact in f32 (not rounded to bf16, unlike
+C > 1 and unlike the JAX XLA path), f32 sums, t rounded to bf16 on bf16
+rows only.  The weights w are exact everywhere (the TPU's approximate
+`fast_w` variant is not ported).
 
 Shapes: xyz (B, P, 3), centers (B, c, 3), nbr (B, c, nn) int32, feats
 (B, P, A*C) contiguous (the row layout `materialize_rows` pins on the TPU),
@@ -54,6 +60,15 @@ def interconv_t_torch(xyz, centers, nbr, feats, rk, sigma: float, A: int):
     w = rnd(_weights(xyz, centers, nbr, rk, sigma), bf16).reshape(B, c, nn, A, K)
     gf = group_points(feats, nbr).float().reshape(B, c, nn, A, C)
     return torch.einsum("bcnak,bcnad->bcakd", w, gf).to(feats.dtype)
+
+
+def interconv_t_c1_torch(xyz, centers, nbr, feats, rk, sigma: float, A: int):
+    """Plain contraction on 1-channel rows feats (B, P, A) -> t (B, c, A, K, 1),
+    in the type of feats, from exact f32 weights and f32 sums."""
+    B, c, nn = nbr.shape
+    w = _weights(xyz, centers, nbr, rk, sigma).reshape(B, c, nn, A, -1)
+    gf = group_points(feats, nbr).float()                          # (B,c,nn,A)
+    return torch.einsum("bcnak,bcna->bcak", w, gf)[..., None].to(feats.dtype)
 
 
 def interconv_ones_torch(xyz, centers, nbr, rk, sigma: float, A: int):
@@ -118,6 +133,27 @@ def interconv_t_cuda(xyz, centers, nbr, feats, rk, sigma: float, A: int):
     return out
 
 
+def interconv_t_c1_cuda(xyz, centers, nbr, feats, rk, sigma: float, A: int):
+    """1-channel rows (B, P, A), f32 or bf16, launch `interconv_t_c1`."""
+    bf16 = feats.dtype == BF16
+    device = _check_geometry("interconv_t_c1", xyz, centers, nbr, rk)
+    _build.check_cuda("interconv_t_c1", (feats, BF16 if bf16 else torch.float32))
+    B, c, nn = nbr.shape
+    P = xyz.shape[1]
+    K = rk.shape[0] // A
+    if feats.shape != (B, P, A) or rk.shape[0] != A * K:
+        raise ValueError(f"interconv_t_c1: feats {tuple(feats.shape)} is not (B, P, A) "
+                         f"for A={A}")
+    if 4 * nn * (4 + A) > _SMEM_BYTES:
+        raise ValueError(f"interconv_t_c1: nn={nn} neighbours do not fit shared memory")
+    out = torch.empty((B, c, A, K, 1), dtype=feats.dtype, device=device)
+    _build.launch("interconv_t_c1", "etch_interconv_t_c1_bf16" if bf16 else
+                  "etch_interconv_t_c1", device, _build.ptr(xyz), _build.ptr(centers),
+                  _build.ptr(nbr), _build.ptr(feats), _build.ptr(rk), _build.ptr(out), B, P,
+                  c, nn, A, K, float(sigma))
+    return out
+
+
 def interconv_ones_cuda(xyz, centers, nbr, rk, sigma: float, A: int):
     device = _check_geometry("interconv_ones", xyz, centers, nbr, rk)
     B, c, nn = nbr.shape
@@ -149,11 +185,15 @@ def interconv_ones_proj_cuda(xyz, centers, nbr, rk, sigma: float, A: int, w):
 
 
 def interconv_t(xyz, centers, nbr, feats, rk, sigma: float, A: int):
-    """t (B, c, A, K, C): kernel on CUDA, plain version on CPU."""
+    """t (B, c, A, K, C): kernel on CUDA, plain version on CPU; C == 1 rows
+    take the 1-channel body."""
+    c1 = feats.shape[-1] == A
     if xyz.is_cuda:
-        return interconv_t_cuda(xyz, centers, nbr, feats, rk, sigma, A)
+        return (interconv_t_c1_cuda if c1 else interconv_t_cuda)(
+            xyz, centers, nbr, feats, rk, sigma, A)
     if xyz.device.type == "cpu":
-        return interconv_t_torch(xyz, centers, nbr, feats, rk, sigma, A)
+        return (interconv_t_c1_torch if c1 else interconv_t_torch)(
+            xyz, centers, nbr, feats, rk, sigma, A)
     raise ValueError(f"interconv_t: unsupported device {xyz.device}")
 
 

@@ -23,7 +23,8 @@ import torch
 from etch_tpu_torch import _build
 from etch_tpu_torch.geometry.icosahedral import get_anchors
 from etch_tpu_torch.geometry.kernel_points import get_kernel_points
-from etch_tpu_torch.nn import dircore, grouped_head, interconv, vector_attention
+from etch_tpu_torch.models.etch_net import DirectionHead, init_params
+from etch_tpu_torch.nn import attention, dircore, grouped_head, interconv, vector_attention
 
 # the modules themselves: etch_tpu_torch.ops re-exports same-named functions
 ball_query = importlib.import_module("etch_tpu_torch.ops.ball_query")
@@ -111,6 +112,22 @@ def _close_bf16(out, ref):
     assert (err / (ref.abs() + 1e-2)).median() <= 1e-3
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_interconv_t_c1_kernel(cuda, dtype):
+    """1-channel rows: the dispatcher launches the C == 1 body."""
+    xyz, ctr, nbr, feats, rk, sigma = _conv_inputs(cuda, 1)
+    feats = feats.to(dtype)
+    before = _build.launches["interconv_t_c1"]
+    out = interconv.interconv_t(xyz, ctr, nbr, feats, rk, sigma, 60)
+    assert _build.launches["interconv_t_c1"] == before + 1
+    ref = interconv.interconv_t_c1_torch(xyz, ctr, nbr, feats, rk, sigma, 60)
+    assert out.shape == ref.shape == (2, 100, 60, 24, 1) and out.dtype == dtype
+    if dtype == torch.float32:
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    else:
+        _close_bf16(out, ref)
+
+
 @pytest.mark.parametrize("C", [8, 32])
 def test_interconv_t_bf16_kernel(cuda, C):
     xyz, ctr, nbr, feats, rk, sigma = _conv_inputs(cuda, C)
@@ -167,6 +184,58 @@ def test_dircore_kernel_per_head_softmax(cuda):
     params["wk0"][:, :8] *= 40.0
     tok = torch.from_numpy(tok).to(cuda, torch.bfloat16)
     assert torch.isfinite(dircore.direction_core_cuda(tok, params, 8)).all()
+
+
+def _qkv(dev, Bc, L, E, H, seed=0):
+    g = np.random.RandomState(seed)
+    q = g.randn(Bc, L, E) / np.sqrt(E // H)
+    return [torch.tensor(a, dtype=torch.float32, device=dev).to(torch.bfloat16)
+            for a in (q, g.randn(Bc, L, E), g.randn(Bc, L, E))]
+
+
+@pytest.mark.parametrize("E,H", [(64, 8), (8, 2), (24, 4), (32, 1)])
+def test_attention_kernel(cuda, E, H):
+    q, k, v = _qkv(cuda, 37, 60, E, H)
+    before = _build.launches["attention"]
+    out = attention.attention(q, k, v, H)
+    assert _build.launches["attention"] == before + 1
+    assert out.dtype == torch.float32
+    _close_bf16(out, attention.attention_torch(q, k, v, H))
+
+
+def test_attention_kernel_extreme_head_gap(cuda):
+    """Head 0's logits ~1e3 above the others' stay finite (per-head max)."""
+    q, k, v = _qkv(cuda, 8, 60, 64, 8, seed=4)
+    q[..., :8] *= 40
+    k[..., :8] *= 40
+    out = attention.attention_cuda(q, k, v, 8)
+    assert torch.isfinite(out).all()
+    _close_bf16(out[..., 8:], attention.attention_torch(q, k, v, 8)[..., 8:])
+
+
+def test_attention_refuses_bad_inputs(cuda):
+    q, k, v = _qkv(cuda, 4, 60, 64, 8)
+    with pytest.raises(TypeError):
+        attention.attention_cuda(q.float(), k, v, 8)
+    with pytest.raises(ValueError):
+        attention.attention_cuda(q, k, v, 7)
+
+
+@torch.no_grad()
+def test_chunked_direction_head_launches_attention(cuda):
+    """fused_core=False: two layers of bf16 tokens run the attention kernel
+    once per layer and chunk, never the fused core, and agree with the same
+    head on the CPU (plain versions)."""
+    head = DirectionHead(64, 128, 8, 2, chunk=16, dtype=torch.bfloat16, fused_core=False)
+    init_params(head, torch.Generator().manual_seed(0))
+    feat = torch.from_numpy(np.random.RandomState(2).randn(40, 60, 64).astype(np.float32))
+    ref = head.anchor_weights(feat)
+    head = head.to(cuda)
+    before = dict(_build.launches)
+    out = head.anchor_weights(feat.to(cuda))
+    assert _build.launches["attention"] == before["attention"] + 2 * 3
+    assert _build.launches["dircore"] == before["dircore"]
+    _close_bf16(out.cpu(), ref)
 
 
 def _va_inputs(dev, B, N, ns, c, s=8, seed=0):

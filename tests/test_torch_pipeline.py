@@ -118,7 +118,8 @@ def test_fit_from_identical_markers():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, etch_tpu_torch.pipeline, etch_tpu_torch.convert; "
+    code = ("import sys, etch_tpu_torch.pipeline, etch_tpu_torch.convert, "
+            "etch_tpu_torch.cli.infer, etch_tpu_torch.nn.attention; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'etch_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
