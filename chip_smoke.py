@@ -10,13 +10,19 @@ built at first use).  Phases, each of which raises on failure:
   2. build: nvcc the kernels, print the build time and ptxas register use;
   3. kernel vs plain PyTorch version on the card, at the shapes of the main
      paths: FPS, kNN and ball-query indices must be equal, the f32 inter-conv
-     contraction (C >= 32 and C == 1 rows) and occupancy conv within
+     contraction (C >= 8 and C == 1 rows) and occupancy conv within
      1e-5 * max|t| (f32 sums in another order); the bf16 kernels (contraction
-     on bf16 rows, C >= 32 and C == 1, occupancy conv with its projection,
+     on bf16 rows, C >= 8 and C == 1, occupancy conv with its projection,
      direction core, anchor attention, vector attention, grouped head) within
      1e-2 * max|plain| at every element with a median relative error
      |diff| / (|plain| + 1e-2) <= 1e-3 (the same rounding points, another
-     summation order); kernel and plain times side by side;
+     summation order); kernel and plain times side by side with each
+     kernel's bound (the larger of its bytes over 3.35 TB/s and its
+     operations over 989 TFLOP/s of bf16 tensor work or 67 TFLOP/s of FP32,
+     from the shapes: `bound`), and for the anchor attention the time of
+     `scaled_dot_product_attention` on the same inputs (no other kernel has
+     one PyTorch call that computes its function); the bf16 contraction at
+     all three contraction shapes of a request (conv1, conv2, conv3);
   4. small-input reference: the serving step at tiny widths on the card
      (kernels) against the same weights on the CPU (plain versions), in five
      variants (SMALL_STEPS): f32; bf16 with two direction layers (the fused
@@ -29,16 +35,19 @@ built at first use).  Phases, each of which raises on failure:
      `run_batch` on capsule clouds: bf16 (the configuration bench.py times),
      bf16 with `direction_head.fused_core = False` (the chunked core, 40
      anchor-attention launches a request) and f32: one warm request, the
-     network's stage times, then timed requests; every kernel of the path's
-     own set must have launched during them and no other; then a B=1
+     network's stage times (median of three requests), then timed
+     requests; every kernel of the path's own set must have launched
+     during them and no other; then a B=1
      request's latency (not for the chunked variant);
   6. the single-scan entry point: `python -m etch_tpu_torch.cli.infer` (its
      `main`) on the repository's 4D-DRESS scan, f32, N=5000, synthetic body,
      into a temporary directory: both files written with the export schema;
      then the latency of `run_scan` on a built pipeline.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
+The line before the last is a JSON object with one entry per kernel (its
+launches on a path and per request, its headline shape's times, bound and
+library time, and every shape's numbers); the last line is
+{"ok": true, "device": {...}}.  Without a CUDA device, or
 without the etch_tpu_torch package beside it, the script exits non-zero
 before printing either.
 """
@@ -58,6 +67,8 @@ B, N = 8, 5000
 TIMED_REQUESTS = 3
 MARKERSET = {f"M{i}": int(v) for i, v in enumerate(np.linspace(0, 6889, 86).astype(int))}
 INTERCONV_RTOL = 1e-5   # max |kernel - plain| <= 1e-5 * max |plain|
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit) for the bounds
+PEAK_BYTES_S, PEAK_BF16_TENSOR, PEAK_FP32 = 3.35e12, 989e12, 67e12
 BF16_ATOL = 1e-2        # bf16 kernels: max |kernel - plain| <= 1e-2 * max |plain|
 BF16_MEDIAN_REL = 1e-3  # and median |kernel - plain| / (|plain| + 1e-2) <= 1e-3
 # the kernels each serving path launches (and no others): f32, bf16 with the
@@ -103,6 +114,35 @@ def capsule_clouds(batch, n, seed=0):
     return np.stack([r * np.cos(th), r * np.sin(th), z], axis=-1).astype(np.float32)
 
 
+def bound(bytes_, tensor_flop=0.0, fp32_flop=0.0):
+    """Least time (ms) the card could take for a kernel's work, and what sets
+    it: `bytes_` moved (each input read once, each output written once) over
+    the memory rate, or the operations over their peak (bf16 tensor-core
+    products, FP32 arithmetic outside the tensor cores; the two units run
+    side by side, so the slower of the two)."""
+    t = {"bytes": bytes_ / PEAK_BYTES_S,
+         "operations": max(tensor_flop / PEAK_BF16_TENSOR, fp32_flop / PEAK_FP32)}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
+
+
+# FP32 operations per kernel-point weight relu(1 - |x - r|^2 / sigma)
+WEIGHT_FLOP = 11
+
+
+def interconv_bound(B, P, c, nn, A, K, C, elem, tensor):
+    """The contraction: xyz, centers, indices, rk and the whole (B, P, A*C)
+    row tensor read, t (B, c, A, K, C) written; the weights on FP32 cores,
+    the products on the tensor cores (bf16) or FP32 cores (f32 rows)."""
+    bytes_ = (B * P * 3 + B * c * 3 + A * K * 3) * 4 + B * c * nn * 4 + \
+        (B * P * A * C + B * c * A * K * C) * elem
+    products = 2.0 * B * c * nn * A * K * C
+    weights = float(WEIGHT_FLOP) * B * c * nn * A * K
+    if tensor:
+        return bound(bytes_, products, weights)
+    return bound(bytes_, 0.0, weights + products)
+
+
 def cuda_ms(torch, fn, reps):
     """Mean device time of fn over `reps` back-to-back calls, after a warm-up."""
     fn()
@@ -119,8 +159,10 @@ def cuda_ms(torch, fn, reps):
 
 def compare_kernels(torch, dev):
     """Phase 3: every kernel against its plain version at main-path shapes.
-    Returns {kernel: {"max_abs_err", "ms", "plain_ms"}} for the first
-    (headline) shape of each kernel; prints every shape."""
+    Returns {kernel: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+    "library_ms", "shapes"}}: the numbers of the first (headline) shape of
+    each kernel, the largest error over its shapes, and every shape's
+    numbers under "shapes"."""
     from etch_tpu_torch.geometry.icosahedral import get_anchors
     from etch_tpu_torch.geometry.kernel_points import get_kernel_points
     from etch_tpu_torch.nn import interconv
@@ -133,14 +175,22 @@ def compare_kernels(torch, dev):
 
     results = {}
 
-    def record(kernel, shape, err, ms, plain_ms):
+    def record(kernel, shape, err, ms, plain_ms, bnd, library_ms=None):
+        bound_ms, by = bnd
+        lib = "" if library_ms is None else f"  library {library_ms:.3f} ms"
         print(f"  {kernel:19s} {shape:34s} max_abs_err {err:.3g}  kernel {ms:.3f} ms"
-              f"  plain {plain_ms:.3f} ms")
+              f"  plain {plain_ms:.3f} ms  bound {bound_ms:.4f} ms ({by}, "
+              f"{100 * bound_ms / ms:.1f}% of it){lib}")
+        entry = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": by, "max_abs_err": err}
         prev = results.get(kernel)
         if prev is None:
-            results[kernel] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            results[kernel] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound_ms, "bound_by": by,
+                               "library_ms": library_ms, "shapes": [entry]}
         else:
             prev["max_abs_err"] = max(prev["max_abs_err"], err)
+            prev["shapes"].append(entry)
 
     xyz = torch.from_numpy(capsule_clouds(B, N, seed=1)).to(dev)
 
@@ -152,7 +202,8 @@ def compare_kernels(torch, dev):
             raise AssertionError(f"fps {N}->{m}: kernel and plain indices differ")
         record("fps", f"B={B} {N}->{m}", 0.0,
                cuda_ms(torch, lambda: fp.fps_cuda(xyz, m), 5),
-               cuda_ms(torch, lambda: fp.fps_torch(xyz, m), 1))
+               cuda_ms(torch, lambda: fp.fps_torch(xyz, m), 1),
+               bound(B * N * 12 + B * m * 4, 0.0, 10.0 * B * m * N))
         centers[m] = gather_points(xyz, out).contiguous()
 
     for k, q, s, label in ((8, xyz, xyz, f"k=8 {N}x{N}"),
@@ -165,9 +216,11 @@ def compare_kernels(torch, dev):
         err = (d2 - rd2).abs().max().item()
         if err != 0.0:
             raise AssertionError(f"knn {label}: squared distances differ by {err}")
+        Q, S = q.shape[1], s.shape[1]
         record("knn", f"B={B} {label}", err,
                cuda_ms(torch, lambda: kn.knn_cuda(q, s, k), 5),
-               cuda_ms(torch, lambda: kn.knn_torch(q, s, k), 2))
+               cuda_ms(torch, lambda: kn.knn_torch(q, s, k), 2),
+               bound(B * (Q + S) * 12 + B * Q * k * 8, 0.0, 8.0 * B * Q * S))
 
     plan = backbone_plan(EtchConfig(num_point=N, batch_size=B))
     conv0, conv1, conv3 = plan[0][0], plan[0][1], plan[1][1]
@@ -178,7 +231,8 @@ def compare_kernels(torch, dev):
         raise AssertionError("ball_query: kernel and plain indices differ")
     record("ball_query", f"B={B} 2500x{N} r={r0:.3f} ns={ns}", 0.0,
            cuda_ms(torch, lambda: bq.ball_query_cuda(q2500, xyz, r0, ns), 5),
-           cuda_ms(torch, lambda: bq.ball_query_torch(q2500, xyz, r0, ns), 2))
+           cuda_ms(torch, lambda: bq.ball_query_torch(q2500, xyz, r0, ns), 2),
+           bound(B * (2500 + N) * 12 + B * 2500 * ns * 4, 0.0, 8.0 * B * 2500 * N))
 
     anchors = get_anchors(60)
 
@@ -187,15 +241,15 @@ def compare_kernels(torch, dev):
         rk = np.einsum("aij,kj->aki", anchors, kp).reshape(-1, 3)
         return torch.from_numpy(np.ascontiguousarray(rk)).to(dev)
 
-    def check(kernel, label, out, ref, fn, plain_fn):
+    def check(kernel, label, out, ref, fn, plain_fn, bnd):
         err = (out - ref).abs().max().item()
         scale = ref.abs().max().item()
         if not err <= INTERCONV_RTOL * scale:
             raise AssertionError(f"{kernel} {label}: max abs err {err} > "
                                  f"{INTERCONV_RTOL} * {scale}")
-        record(kernel, label, err, cuda_ms(torch, fn, 5), cuda_ms(torch, plain_fn, 1))
+        record(kernel, label, err, cuda_ms(torch, fn, 5), cuda_ms(torch, plain_fn, 1), bnd)
 
-    def check_bf16(kernel, label, fn, plain_fn):
+    def check_bf16(kernel, label, fn, plain_fn, bnd, library_fn=None):
         out, ref = fn().float(), plain_fn().float()
         err = (out - ref).abs()
         worst, scale = err.max().item(), ref.abs().max().item()
@@ -206,7 +260,8 @@ def compare_kernels(torch, dev):
         if not (worst <= BF16_ATOL * scale and med <= BF16_MEDIAN_REL):
             raise AssertionError(f"{kernel} {label}: max abs err {worst} (limit "
                                  f"{BF16_ATOL} * {scale}), median rel err {med}")
-        record(kernel, label, worst, cuda_ms(torch, fn, 5), cuda_ms(torch, plain_fn, 1))
+        record(kernel, label, worst, cuda_ms(torch, fn, 5), cuda_ms(torch, plain_fn, 1), bnd,
+               None if library_fn is None else cuda_ms(torch, library_fn, 5))
 
     # occupancy conv of conv0: one 512-center chunk of the 2500 FPS centers
     ctr, nbr = q2500[:, :512].contiguous(), nbr0[:, :512].contiguous()
@@ -215,12 +270,14 @@ def compare_kernels(torch, dev):
           interconv.interconv_ones_cuda(xyz, ctr, nbr, rk, sg, 60),
           interconv.interconv_ones_torch(xyz, ctr, nbr, rk, sg, 60),
           lambda: interconv.interconv_ones_cuda(xyz, ctr, nbr, rk, sg, 60),
-          lambda: interconv.interconv_ones_torch(xyz, ctr, nbr, rk, sg, 60))
+          lambda: interconv.interconv_ones_torch(xyz, ctr, nbr, rk, sg, 60),
+          bound(B * N * 12 + B * 512 * 12 + B * 512 * ns * 4 + 1440 * 12 + B * 512 * 1440 * 4,
+                0.0, (WEIGHT_FLOP + 1.0) * B * 512 * ns * 1440))
 
     gen = torch.Generator(device=dev).manual_seed(0)
     for spec, pts in ((conv1, q2500), (conv3, centers[1250])):
-        C = spec["dim_in"]
-        feats = torch.randn((B, pts.shape[1], 60 * C), device=dev, generator=gen)
+        C, P = spec["dim_in"], pts.shape[1]
+        feats = torch.randn((B, P, 60 * C), device=dev, generator=gen)
         ctr = pts[:, :512].contiguous()          # lazy sampling: the first points
         nbr = bq.ball_query_cuda(ctr, pts, spec["radius"], spec["n_neighbor"])
         rk, sg = rk_of(spec), spec["sigma"]
@@ -228,8 +285,15 @@ def compare_kernels(torch, dev):
               interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
               interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
               lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
-              lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60))
+              lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
+              interconv_bound(B, P, 512, spec["n_neighbor"], 60, 24, C, 4, tensor=False))
         del feats
+    def c1_bound(nn, elem):
+        """C == 1 body at conv1's geometry: 512 of 2500 centers."""
+        bytes_ = (B * 2500 * 3 + B * 512 * 3 + 1440 * 3) * 4 + B * 512 * nn * 4 + \
+            (B * 2500 * 60 + B * 512 * 1440) * elem
+        return bound(bytes_, 0.0, (WEIGHT_FLOP + 2.0) * B * 512 * nn * 1440)
+
     # contraction on 1-channel rows (an EPN schedule whose conv1 has C=1), at
     # conv1's geometry
     feats = torch.randn((B, q2500.shape[1], 60), device=dev, generator=gen)
@@ -240,15 +304,18 @@ def compare_kernels(torch, dev):
           interconv.interconv_t_c1_cuda(q2500, ctr, nbr, feats, rk, sg, 60),
           interconv.interconv_t_c1_torch(q2500, ctr, nbr, feats, rk, sg, 60),
           lambda: interconv.interconv_t_c1_cuda(q2500, ctr, nbr, feats, rk, sg, 60),
-          lambda: interconv.interconv_t_c1_torch(q2500, ctr, nbr, feats, rk, sg, 60))
+          lambda: interconv.interconv_t_c1_torch(q2500, ctr, nbr, feats, rk, sg, 60),
+          c1_bound(conv1["n_neighbor"], 4))
     del feats
     torch.cuda.empty_cache()
-    compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, check_bf16)
+    compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, check_bf16,
+                         c1_bound)
     torch.cuda.empty_cache()
     return results
 
 
-def compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, check):
+def compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, check,
+                         c1_bound):
     """Phase 3, the bf16 path's kernels at its main-path shapes, on random
     weights of the reference widths."""
     from etch_tpu_torch.nn import attention, dircore, grouped_head, interconv, vector_attention
@@ -268,20 +335,25 @@ def compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, ch
     w = randn(24, conv0["dim_out"], scale=(6 / (24 + conv0["dim_out"])) ** 0.5)
     check("interconv_ones_proj", f"B={B} P={N} c=512 nn={ns} Co={w.shape[1]}",
           lambda: interconv.interconv_ones_proj_cuda(xyz, ctr, nbr, rk, sg, 60, w),
-          lambda: interconv.interconv_ones_proj_torch(xyz, ctr, nbr, rk, sg, 60, w))
+          lambda: interconv.interconv_ones_proj_torch(xyz, ctr, nbr, rk, sg, 60, w),
+          bound(B * N * 12 + B * 512 * 12 + B * 512 * ns * 4 + 1440 * 12 +
+                B * 512 * 60 * w.shape[1] * 2,
+                0.0, (WEIGHT_FLOP + 1.0) * B * 512 * ns * 1440 + 2.0 * B * 512 * 1440 * w.shape[1]))
 
-    # contraction on bf16 feature rows (conv1, conv3)
+    # contraction on bf16 feature rows: conv1 (C=32, centers of 2500), conv2
+    # (C=32, the first 1250 of 2500: lazy sampling) and conv3 (C=64, 1250)
     plan = backbone_plan(EtchConfig(num_point=N, batch_size=B))
-    for spec, pts in ((plan[0][1], q2500), (plan[1][1], centers[1250])):
-        C = spec["dim_in"]
-        feats = randn(B, pts.shape[1], 60 * C).to(bf)
+    for spec, pts in ((plan[0][1], q2500), (plan[1][0], q2500), (plan[1][1], centers[1250])):
+        C, P = spec["dim_in"], pts.shape[1]
+        feats = randn(B, P, 60 * C).to(bf)
         ctr = pts[:, :512].contiguous()
         nbr = ball_query(ctr, pts, spec["radius"], spec["n_neighbor"])
         rk, sg = rk_of(spec), spec["sigma"]
         check("interconv_t_bf16",
-              f"B={B} P={pts.shape[1]} c=512 nn={spec['n_neighbor']} C={C}",
+              f"B={B} P={P} c=512 of {spec['n_out']} nn={spec['n_neighbor']} C={C}",
               lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
-              lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60))
+              lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
+              interconv_bound(B, P, 512, spec["n_neighbor"], 60, 24, C, 2, tensor=True))
         del feats
     spec = plan[0][1]
     feats = randn(B, q2500.shape[1], 60).to(bf)
@@ -290,7 +362,8 @@ def compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, ch
     rk, sg = rk_of(spec), spec["sigma"]
     check("interconv_t_c1", f"B={B} P=2500 c=512 nn={spec['n_neighbor']} C=1 bf16",
           lambda: interconv.interconv_t_c1_cuda(q2500, ctr, nbr, feats, rk, sg, 60),
-          lambda: interconv.interconv_t_c1_torch(q2500, ctr, nbr, feats, rk, sg, 60))
+          lambda: interconv.interconv_t_c1_torch(q2500, ctr, nbr, feats, rk, sg, 60),
+          c1_bound(spec["n_neighbor"], 2))
     del feats
 
     # direction core: every point's (60, 64) tokens, 8 heads, V=128
@@ -305,18 +378,29 @@ def compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, ch
                   wm1=randn(V, V, scale=V ** -0.5), bm1=randn(V, scale=0.1),
                   wr=randn(V, 1, scale=V ** -0.5), br=randn(1, scale=0.1))
     tokens = randn(B * N, 60, E).to(bf)
-    check("dircore", f"M={B * N} A=60 E={E} H={H} V={V}",
+    M, A = B * N, 60
+    flop = 2.0 * M * A * (2 * 3 * E * E + E * E + E * V + 2 * V * V + V) + 4.0 * 2 * M * A * A * E
+    check("dircore", f"M={M} A={A} E={E} H={H} V={V}",
           lambda: dircore.direction_core_cuda(tokens, params, H),
           lambda: torch.cat([dircore.direction_core_torch(tokens[s:s + 2048], params, H)
-                             for s in range(0, B * N, 2048)]))
+                             for s in range(0, B * N, 2048)]),
+          bound(M * A * E * 2 + M * A * 4, flop))
     del tokens
 
     # anchor attention of the chunked core: one 2048-point chunk, 8 heads
-    q, k, v = (randn(2048, 60, E, scale=(E // H) ** -0.5 if i == 0 else 1.0).to(bf)
-               for i in range(3))
-    check("attention", f"Bc=2048 L=60 E={E} H={H}",
+    # (its library yardstick: scaled_dot_product_attention on the same q, k,
+    # v as (2048 * H, 60, hs), q already scaled)
+    Bc, L, hs = 2048, 60, E // H
+    q, k, v = (randn(Bc, L, E, scale=hs ** -0.5 if i == 0 else 1.0).to(bf) for i in range(3))
+    qh, kh, vh = (t.reshape(Bc, L, H, hs).transpose(1, 2).reshape(Bc * H, L, hs).contiguous()
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    check("attention", f"Bc={Bc} L={L} E={E} H={H}",
           lambda: attention.attention_cuda(q, k, v, H),
-          lambda: attention.attention_torch(q, k, v, H))
+          lambda: attention.attention_torch(q, k, v, H),
+          bound(3 * Bc * L * E * 2 + Bc * L * E * 4, 4.0 * Bc * L * L * E),
+          library_fn=lambda: sdpa(qh, kh, vh, scale=1.0))
+    del q, k, v, qh, kh, vh
 
     # vector attention at each U-Net level's shape (both heads' widths at level 0)
     xyz5 = xyz.contiguous()
@@ -330,18 +414,24 @@ def compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, ch
                 torch.stack([randn(c).abs() + 0.5, randn(c)]), randn(c, cs, scale=c ** -0.5),
                 torch.stack([randn(cs).abs() + 0.5, randn(cs)]),
                 randn(cs, cs, scale=cs ** -0.5), randn(cs))
-        check("vector_attention", f"R={Bl * Nl} ns={nsl} c={c}",
+        R = Bl * Nl
+        check("vector_attention", f"R={R} ns={nsl} c={c}",
               lambda: vector_attention.vector_attention_cuda(*args),
-              lambda: vector_attention.vector_attention_torch(*args))
+              lambda: vector_attention.vector_attention_torch(*args),
+              bound(R * c * 2 * 3 + R * nsl * (4 + c * 2) + R * c * 4,
+                    2.0 * R * nsl * (c * cs + cs * cs), R * nsl * (8.0 * c + 6.0 * cs)))
 
     # grouped confidence head: c0=128, k=86 parts
     c0, k = 128, 86
     gargs = (randn(B * N, c0).to(bf), randn(c0, k * c0, scale=c0 ** -0.5),
              randn(k * c0, scale=0.1), randn(k, c0, scale=(6 / (k + c0)) ** 0.5),
              randn(k, scale=0.1))
-    check("grouped_head", f"R={B * N} c0={c0} k={k}",
+    R = B * N
+    check("grouped_head", f"R={R} c0={c0} k={k}",
           lambda: grouped_head.grouped_head_cuda(*gargs),
-          lambda: grouped_head.grouped_head_torch(*gargs))
+          lambda: grouped_head.grouped_head_torch(*gargs),
+          bound(R * c0 * 2 + c0 * k * c0 * 2 + R * k * 4, 2.0 * R * c0 * k * c0,
+                4.0 * R * k * c0))
 
 
 SMALL_STEPS = (  # phase 4: (label, EtchConfig.tiny overrides, kernel set on the card)
@@ -429,13 +519,15 @@ def run_requests(torch, pipe, pts, n):
     return out, times
 
 
-def stage_times(torch, pipe, pts):
-    """Device time of the network's stages in one run_batch (CUDA events
-    recorded by forward hooks on each head and the encoder; "forward" is the
-    whole network, "rest" the run_batch time outside it: markers, LM fit,
-    SMPL forward)."""
+def stage_times(torch, pipe, pts, reps=TIMED_REQUESTS):
+    """Device time of the network's stages, the median of `reps` run_batch
+    calls (CUDA events recorded by forward hooks on each head and the
+    encoder; "forward" is the whole network, "rest" the run_batch time
+    outside it: markers, LM fit, SMPL forward).  A stage's events also
+    count the host's gaps between its launches, so one request alone
+    moves with the host."""
     model = pipe.model
-    events, hooks = {}, []
+    events, hooks, runs = {}, [], []
     for name in ("encoder", "confidence_encoder", "direction_head", "magnitude_encoder", ""):
         mod = model.get_submodule(name) if name else model
         label = name or "forward"
@@ -449,15 +541,17 @@ def stage_times(torch, pipe, pts):
             events[label][1].record()
 
         hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
-    t0 = time.perf_counter()
-    pipe.run_batch(pts)
-    torch.cuda.synchronize()
-    total = (time.perf_counter() - t0) * 1e3
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pipe.run_batch(pts)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+        ms = {k: a.elapsed_time(b) for k, (a, b) in events.items()}
+        ms["rest"] = total - ms["forward"]
+        runs.append(ms)
     for h in hooks:
         h.remove()
-    ms = {k: round(a.elapsed_time(b), 2) for k, (a, b) in events.items()}
-    ms["rest"] = round(total - ms["forward"], 2)
-    return ms
+    return {k: round(statistics.median(r[k] for r in runs), 2) for k in runs[0]}
 
 
 def main_path(torch, _build, path, latency=True):
@@ -612,13 +706,17 @@ def main():
     print("kernel vs plain PyTorch on the card:")
     kernels = compare_kernels(torch, dev)
 
-    # 4. small-input reference; the 1-channel body runs only here
-    launches = {}
+    # 4. small-input reference; the 1-channel body runs only here (one
+    # request per step)
+    launches, per_request = {}, {}
+    c1_steps = [s for s in SMALL_STEPS if s[2].endswith("_c1")]
     for label, overrides, path in SMALL_STEPS:
         counts = small_step(torch, _build, label, overrides, path)
         if path.endswith("_c1"):
             launches["interconv_t_c1"] = launches.get("interconv_t_c1", 0) + counts[
                 "interconv_t_c1"]
+    per_request["interconv_t_c1"] = (launches["interconv_t_c1"] / len(c1_steps),
+                                     "tiny 1-channel steps")
 
     # 5. main paths at full width: bf16 (what bench.py times), bf16 with the
     # chunked direction core, then f32; each kernel's count from the first
@@ -628,7 +726,9 @@ def main():
         counts, stages[path] = main_path(torch, _build, path,
                                          latency=path != "bf16_chunked")
         for k in PATH_KERNELS[path]:
-            launches.setdefault(k, counts[k])
+            if k not in launches:
+                launches[k] = counts[k]
+                per_request[k] = (counts[k] / TIMED_REQUESTS, path)
     print(f"direction head ms B={B}: fused {stages['bf16']['direction_head']}, chunked "
           f"{stages['bf16_chunked']['direction_head']}; forward fused "
           f"{stages['bf16']['forward']}, chunked {stages['bf16_chunked']['forward']}")
@@ -641,7 +741,9 @@ def main():
         raise AssertionError(f"kernels never launched on a path: {idle}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"etch_tpu_torch/csrc/{src}",
-         "replaces": replaces, "launches": launches[name], **kernels[name]}
+         "replaces": replaces, "launches": launches[name],
+         "launches_per_request": per_request[name][0], "launch_path": per_request[name][1],
+         **kernels[name]}
         for name, (src, replaces) in SOURCES.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "etch_interconv_t": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P),
     "etch_interconv_t_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _F, _P),
+                              _F, _P),
     "etch_interconv_ones": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "etch_interconv_ones_proj": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _F, _P),

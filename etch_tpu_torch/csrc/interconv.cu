@@ -1,7 +1,7 @@
 // Inter-SO(3)-conv contraction, with both neighbour gathers fused in.
 //
 // Replaces etch_tpu/nn/pallas_interconv.py:interconv_t_pallas, bodies _kernel
-// (C >= 32 feature contraction, f32 or bf16 features), _kernel_ones (all-ones
+// (C >= 8 feature contraction, f32 or bf16 features), _kernel_ones (all-ones
 // occupancy input), _kernel_ones_proj (occupancy input with the (K -> Co)
 // projection fused in, bf16 serving path) and _kernel_c1 (1-channel feature
 // rows that are not the occupancy input).  For a center p with neighbours
@@ -31,17 +31,50 @@
 // rows of the contiguous feature tensor is the layout contract that
 // etch_tpu/ops/grouping.py:materialize_rows pins on the TPU.
 //
-// Bound on the H100: FP32 FMA issue and shared-memory bandwidth (no tensor
-// cores: the f32 path keeps full precision).  Per center the contraction is
-// nn*A*K*C FMAs (2.9 M at nn=64, C=32) against nn*A*C*4 bytes of gathered
-// features, about 12 FMAs a byte.  Design: anchors are processed in groups
-// of G, sized so the w tile (nn x G*K) and the feature tile (nn x G*C) fit in
-// shared memory (a whole (64, 1440) f32 w block is 368 KB and does not); each
-// thread accumulates a TK x TC = 3 x 4 register micro-tile of (k, c) outputs,
-// so seven shared-memory reads feed twelve FMAs.  The bf16 variant is the
-// same kernel reading half the feature bytes; its products of two bf16 values
-// are exact in f32, so FP32 FMAs reproduce a bf16 MMA with f32 accumulation.
-// Tensor-core (wgmma) and TMA staging are left for later work.
+// bf16 rows (interconv_mma_kernel).  Bound on the H100: the bytes of t.  A
+// 512-center chunk at B=8, C=32 writes 377 MB of bf16 t (755 MB at C=64) and
+// reads at most 77 MB of distinct rows: 0.136 ms (0.248 ms) at 3.35 TB/s,
+// against 24 GFLOP (48) of products, 0.025 ms (0.05) on the tensor cores.
+// Per center and anchor the contraction is a small GEMM, (K x nn)(nn x C),
+// run as bf16 mma.sync m16n8k16 with f32 accumulators: M = K (24, padded to
+// two m16 tiles, 32), N = C (C/8 n8 tiles), depth nn (padded to 16; padded
+// neighbours have w = 0 and finite feature rows).  This orientation pads K,
+// which costs only products the byte bound leaves free, and in exchange
+// hands back each accumulator fragment in t's own (k, c) row-major order and
+// takes C = 8 as one n8 tile; M = C, N = K would pad nothing at C >= 16 but
+// return t transposed and pad C = 8 to 16.  A block of 4 warps owns one
+// center; each warp owns anchors warp, warp + 4, ... and runs its own
+// pipeline with no block barrier: it gathers anchor a+4's (nn, C) feature
+// tile with 16-byte cp.async into the second of two tiles (each neighbour's
+// C values are contiguous in the (B, P, A*C) row) while anchor a computes.
+// The w tile never exists: each lane evaluates on the FP32 cores exactly the
+// weights of its own A fragments (kernel points g + 8m, neighbours 16kt + t2
+// + {0, 1, 8, 9}; the m16n8k16 A layout covers each (k, n) once) and packs
+// them to bf16 in registers, as kernel_weight and etch_round_bf16 do; the
+// quotient by sigma is formed by Markstein's correction from RN(1 / sigma),
+// which gives the correctly rounded f32 quotient in three instructions
+// instead of a division's ten.  At some twelve FP32 instructions a weight
+// (377 M weights a C = 32 chunk) this evaluation, not the bytes, is what
+// the kernel's time follows.  The feature B fragments come by
+// ldmatrix.trans from rows padded by 8 elements (16 bytes), which keeps
+// every ldmatrix phase free of bank conflicts.  The epilogue rounds to
+// bf16, stages the (K, C) block in the warp's spent feature tile and writes
+// it with 16-byte streaming stores (t exceeds L2 and is read once, by the
+// projection).  Shared memory per block: 20 nn_pad bytes of offsets and
+// indices plus, per warp, two feature tiles of max(nn_pad, K) x (C + 8)
+// bf16: at nn = 64, 42.2 KB for C = 32 (5 blocks, 20 warps an SM) and
+// 75 KB for C = 64 (3 blocks, 12 warps).  Left for later: fusing the
+// (K*C -> Co) projection so that t never reaches device memory.
+//
+// f32 rows (interconv_kernel).  Bound: FP32 FMA issue and shared-memory
+// bandwidth (no tensor cores: the f32 path keeps full precision).  Per center
+// the contraction is nn*A*K*C FMAs (2.9 M at nn=64, C=32) against nn*A*C*4
+// bytes of gathered features, about 12 FMAs a byte.  Design: anchors are
+// processed in groups of G, sized so the w tile (nn x G*K) and the feature
+// tile (nn x G*C) fit in shared memory (a whole (64, 1440) f32 w block is
+// 368 KB and does not); each thread accumulates a TK x TC = 3 x 4 register
+// micro-tile of (k, c) outputs, so seven shared-memory reads feed twelve
+// FMAs.
 //
 // The fused occupancy projection is bound by the weight evaluation, as the
 // plain occupancy kernel is (nn*A*K = 92 K weights per center); its
@@ -49,7 +82,7 @@
 // removes the (B, c, A, K) f32 intermediate and the separate projection.
 //
 // The C == 1 body keeps _kernel_c1's rounding: w is the exact f32 weight
-// (not rounded to bf16, unlike the C >= 32 body), the products and sums are
+// (not rounded to bf16, unlike the C >= 8 body), the products and sums are
 // f32, and t is rounded to bf16 only on bf16 rows.  The TPU kernel expands
 // the (nn, A) rows to (nn, A*K) lanes with a one-hot matmul; here one thread
 // owns an (a, k) column and reads its anchor's feature from the block's
@@ -59,8 +92,11 @@
 
 namespace {
 
-constexpr int kTK = 3;  // kernel points per thread micro-tile
-constexpr int kTC = 4;  // channels per thread micro-tile
+constexpr int kTK = 3;  // kernel points per thread micro-tile (f32 body)
+constexpr int kTC = 4;  // channels per thread micro-tile (f32 body)
+constexpr int kMmaWarps = 4;  // warps per block of the bf16 body
+constexpr int kKp = 32;       // kernel points padded to two m16 tiles
+constexpr float kFar = 1e3f;  // a coordinate no kernel point reaches: w = 0
 
 __device__ __forceinline__ void load_offsets(const float* __restrict__ xyz,
                                              const float* __restrict__ ctr,
@@ -80,18 +116,15 @@ __device__ __forceinline__ float kernel_weight(const float* g, const float* r, f
   return fmaxf(1.f - (dx * dx + dy * dy + dz * dz) / sigma, 0.f);
 }
 
-// grid (c, B); block G * (K / kTK) * (C / kTC) threads.  T: feature and
-// output type (float, or bf16 with w rounded to bf16 before the multiply).
-template <typename T>
+// grid (c, B); block G * (K / kTK) * (C / kTC) threads.  f32 rows.
 __global__ void interconv_kernel(const float* __restrict__ xyz,      // (B, P, 3)
                                  const float* __restrict__ centers,  // (B, c, 3)
                                  const int32_t* __restrict__ nbr,    // (B, c, nn)
-                                 const T* __restrict__ feats,        // (B, P, A*C)
+                                 const float* __restrict__ feats,    // (B, P, A*C)
                                  const float* __restrict__ rk,       // (A*K, 3)
-                                 T* __restrict__ out,                // (B, c, A, K, C)
+                                 float* __restrict__ out,            // (B, c, A, K, C)
                                  int P, int c, int nn, int A, int K, int C, int G,
                                  float sigma) {
-  constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ float smem[];
   float* gx = smem;                       // nn * 3
   float* ws = gx + nn * 3;                // nn * G*K
@@ -111,19 +144,18 @@ __global__ void interconv_kernel(const float* __restrict__ xyz,      // (B, P, 3
   const int c0 = (r % ct_n) * kTC;
   const int GK = G * K, GC = G * C;
   const size_t AC = static_cast<size_t>(A) * C;
-  const T* fb = feats + static_cast<size_t>(b) * P * AC;
-  T* ob = out + bp * static_cast<size_t>(A) * K * C;
+  const float* fb = feats + static_cast<size_t>(b) * P * AC;
+  float* ob = out + bp * static_cast<size_t>(A) * K * C;
 
   for (int a0 = 0; a0 < A; a0 += G) {
     __syncthreads();  // offsets ready / previous group's tiles consumed
     for (int e = threadIdx.x; e < nn * GK; e += blockDim.x) {
       const int n = e / GK, gk = e % GK;
-      const float w = kernel_weight(gx + 3 * n, rk + 3 * (static_cast<size_t>(a0) * K + gk), sigma);
-      ws[e] = kBf16 ? etch_round_bf16(w) : w;
+      ws[e] = kernel_weight(gx + 3 * n, rk + 3 * (static_cast<size_t>(a0) * K + gk), sigma);
     }
     for (int e = threadIdx.x; e < nn * GC; e += blockDim.x) {
       const int n = e / GC, col = e % GC;
-      fs[e] = etch_f32(fb[static_cast<size_t>(sidx[n]) * AC + static_cast<size_t>(a0) * C + col]);
+      fs[e] = fb[static_cast<size_t>(sidx[n]) * AC + static_cast<size_t>(a0) * C + col];
     }
     __syncthreads();
 
@@ -145,11 +177,157 @@ __global__ void interconv_kernel(const float* __restrict__ xyz,      // (B, P, 3
 #pragma unroll
         for (int j = 0; j < kTC; ++j) acc[i][j] = fmaf(wv[i], fv[j], acc[i][j]);
     }
-    T* op = ob + (static_cast<size_t>(a0 + g) * K + k0) * C + c0;
+    float* op = ob + (static_cast<size_t>(a0 + g) * K + k0) * C + c0;
 #pragma unroll
     for (int i = 0; i < kTK; ++i)
 #pragma unroll
-      for (int j = 0; j < kTC; ++j) etch_store(op + i * C + j, acc[i][j]);
+      for (int j = 0; j < kTC; ++j) op[i * C + j] = acc[i][j];
+  }
+}
+
+// Shared memory of the bf16 body: neighbour offsets (float4) and indices,
+// then per warp two (rows, C + 8) bf16 feature tiles, rows = max(nn_pad, K)
+// (rows padded by 8 elements; a spent tile stages the (K, C) output).
+__host__ __device__ __forceinline__ int mma_nn_pad(int nn) { return (nn + 15) & ~15; }
+__host__ __device__ __forceinline__ int mma_tile_rows(int np, int K) { return np > K ? np : K; }
+
+// w = relu(1 - |o - r|^2 / sigma) as kernel_weight computes it; the quotient
+// by Markstein's correction from rs = RN(1 / sigma), which returns the
+// correctly rounded d2 / sigma in three instructions.
+__device__ __forceinline__ float mma_weight(float4 o, const float (&r)[3], float sigma,
+                                            float rs) {
+  const float dx = o.x - r[0], dy = o.y - r[1], dz = o.z - r[2];
+  const float d2 = dx * dx + dy * dy + dz * dz;
+  const float q1 = d2 * rs;
+  return fmaxf(1.f - fmaf(fmaf(-q1, sigma, d2), rs, q1), 0.f);
+}
+
+// grid (c, B); block kMmaWarps * 32.  bf16 rows, C = 8 * NT, K <= kKp.
+template <int NT>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+interconv_mma_kernel(const float* __restrict__ xyz,      // (B, P, 3)
+                     const float* __restrict__ centers,  // (B, c, 3)
+                     const int32_t* __restrict__ nbr,    // (B, c, nn)
+                     const bf16* __restrict__ feats,     // (B, P, A*C)
+                     const float* __restrict__ rk,       // (A*K, 3)
+                     bf16* __restrict__ out,             // (B, c, A, K, C)
+                     int P, int c, int nn, int A, int K, float sigma) {
+  constexpr int C = 8 * NT;
+  constexpr int kLdF = C + 8;               // feature and staging row stride
+  const int np = mma_nn_pad(nn);
+  const int tile = mma_tile_rows(np, K) * kLdF;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* gx = reinterpret_cast<float4*>(smem_raw);    // np
+  int* sidx = reinterpret_cast<int*>(gx + np);         // np
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bf16* fbuf = reinterpret_cast<bf16*>(sidx + np) + static_cast<size_t>(warp) * 2 * tile;
+
+  const int p = blockIdx.x, b = blockIdx.y;
+  const size_t bp = static_cast<size_t>(b) * c + p;
+  const float* xb = xyz + static_cast<size_t>(b) * P * 3;
+  const float* ctr = centers + bp * 3;
+  // padded neighbours sit at kFar, padded kernel points at -kFar: their
+  // weights come out exactly 0 with no test in the weight loop
+  for (int n = threadIdx.x; n < np; n += blockDim.x) {
+    if (n < nn) {
+      const int j = nbr[bp * nn + n];
+      sidx[n] = j;
+      gx[n] = make_float4(xb[3 * j] - ctr[0], xb[3 * j + 1] - ctr[1], xb[3 * j + 2] - ctr[2], 0.f);
+    } else {
+      gx[n] = make_float4(kFar, kFar, kFar, 0.f);
+    }
+  }
+  // padded neighbour rows of both feature tiles start at zero (their w is
+  // 0, and 0 times a stale NaN would not be)
+  const int pad = (np - nn) * C;
+  for (int e = lane; e < 2 * pad; e += 32) {
+    const int r = e % pad;
+    fbuf[(e / pad) * tile + (nn + r / C) * kLdF + r % C] = __float2bfloat16(0.f);
+  }
+  __syncthreads();  // offsets and indices ready; from here each warp is on its own
+
+  const size_t AC = static_cast<size_t>(A) * C;
+  const bf16* fb = feats + static_cast<size_t>(b) * P * AC;
+  auto gather = [&](int a, bf16* dst) {
+    for (int e = lane; e < nn * NT; e += 32) {
+      const int n = e / NT, ch = e % NT;
+      etch_cp_async16(dst + n * kLdF + ch * 8,
+                      fb + static_cast<size_t>(sidx[n]) * AC + static_cast<size_t>(a) * C + ch * 8);
+    }
+  };
+  const int g = lane >> 2, t2 = 2 * (lane & 3);   // fragment row and column pair
+  const float rs = 1.f / sigma;
+
+  if (warp < A) gather(warp, fbuf);
+  etch_cp_async_commit();
+  for (int a = warp, i = 0; a < A; a += kMmaWarps, ++i) {
+    // this lane's A-fragment rows are kernel points g + 8m, m = 0..3
+    float r[4][3];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int k = g + 8 * m;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) r[m][d] = k < K ? __ldg(rk + (static_cast<size_t>(a) * K + k) * 3 + d) : -kFar;
+    }
+    // next anchor's features into the other tile, then wait for this one's
+    if (a + kMmaWarps < A) gather(a + kMmaWarps, fbuf + ((i + 1) & 1) * tile);
+    etch_cp_async_commit();
+    etch_cp_async_wait<1>();
+    __syncwarp();
+
+    bf16* fcur = fbuf + (i & 1) * tile;
+    float acc[2][NT][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+    for (int kt = 0; kt < np / 16; ++kt) {
+      // w for rows g + 8m and neighbours 16 kt + t2 + {0, 1, 8, 9}, formed
+      // in registers straight into the A fragments (bf16, as etch_round_bf16)
+      float w[4][4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int n = 16 * kt + t2 + (u & 1) + 8 * (u >> 1);
+        const float4 o = gx[n];
+#pragma unroll
+        for (int m = 0; m < 4; ++m)   // 8m < K is the same for every lane: rows 24..31 at K = 24 cost nothing
+          w[m][u] = 8 * m < K ? mma_weight(o, r[m], sigma, rs) : 0.f;
+      }
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          af[mt][h] = etch_pack_bf16(w[2 * mt + h][0], w[2 * mt + h][1]);
+          af[mt][2 + h] = etch_pack_bf16(w[2 * mt + h][2], w[2 * mt + h][3]);
+        }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bq[2];
+        etch_ldsm_x2_trans(bq, fcur + (kt * 16 + (lane & 15)) * kLdF + j * 8);
+        etch_mma_16816(acc[0][j], af[0], bq[0], bq[1]);
+        etch_mma_16816(acc[1][j], af[1], bq[0], bq[1]);
+      }
+    }
+    __syncwarp();  // every lane has read the tile: it becomes the staging tile
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = 16 * m + g + 8 * h;
+          if (k < K)
+            *reinterpret_cast<uint32_t*>(fcur + k * kLdF + j * 8 + t2) =
+                etch_pack_bf16(acc[m][j][2 * h], acc[m][j][2 * h + 1]);
+        }
+    __syncwarp();
+    int4* op = reinterpret_cast<int4*>(out + (bp * A + a) * static_cast<size_t>(K) * C);
+    for (int e = lane; e < K * NT; e += 32)
+      __stcs(op + e, *reinterpret_cast<const int4*>(fcur + (e / NT) * kLdF + (e % NT) * 8));
+    __syncwarp();  // staging read before the tile takes the gather after next
   }
 }
 
@@ -261,41 +439,58 @@ int launch_interconv_c1(const float* xyz, const float* centers, const int32_t* n
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_interconv_t(const float* xyz, const float* centers, const int32_t* nbr,
-                       const void* feats, const float* rk, void* out, int b, int P, int c,
-                       int nn, int A, int K, int C, int G, float sigma, cudaStream_t stream) {
-  const size_t smem =
-      (static_cast<size_t>(nn) * (3 + G * K + G * C) + nn) * sizeof(float);
-  cudaError_t err = etch_allow_smem(interconv_kernel<T>, smem);
+template <int NT>
+int launch_interconv_mma(const float* xyz, const float* centers, const int32_t* nbr,
+                         const void* feats, const float* rk, void* out, int b, int P, int c,
+                         int nn, int A, int K, float sigma, cudaStream_t stream) {
+  const int np = mma_nn_pad(nn);
+  const size_t smem = static_cast<size_t>(np) * 20 +
+                      static_cast<size_t>(kMmaWarps) * 2 * mma_tile_rows(np, K) *
+                          (8 * NT + 8) * sizeof(bf16);
+  cudaError_t err = etch_allow_smem(interconv_mma_kernel<NT>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = G * (K / kTK) * (C / kTC);
-  interconv_kernel<T><<<dim3(c, b), threads, smem, stream>>>(
-      xyz, centers, nbr, static_cast<const T*>(feats), rk, static_cast<T*>(out), P, c, nn, A,
-      K, C, G, sigma);
+  interconv_mma_kernel<NT><<<dim3(c, b), kMmaWarps * 32, smem, stream>>>(
+      xyz, centers, nbr, static_cast<const bf16*>(feats), rk, static_cast<bf16*>(out), P, c, nn,
+      A, K, sigma);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Contraction.  Requires K % 3 == 0, C % 4 == 0, A % G == 0; the caller picks
-// G and passes the block's thread count G * (K/3) * (C/4).
+// Contraction on f32 rows.  Requires K % 3 == 0, C % 4 == 0, A % G == 0; the
+// caller picks G and passes the block's thread count G * (K/3) * (C/4).
 ETCH_API int etch_interconv_t(const float* xyz, const float* centers, const int32_t* nbr,
                               const float* feats, const float* rk, float* out, int b, int P,
                               int c, int nn, int A, int K, int C, int G, float sigma,
                               cudaStream_t stream) {
-  return launch_interconv_t<float>(xyz, centers, nbr, feats, rk, out, b, P, c, nn, A, K, C, G,
-                                   sigma, stream);
+  const size_t smem =
+      (static_cast<size_t>(nn) * (3 + G * K + G * C) + nn) * sizeof(float);
+  cudaError_t err = etch_allow_smem(interconv_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = G * (K / kTK) * (C / kTC);
+  interconv_kernel<<<dim3(c, b), threads, smem, stream>>>(xyz, centers, nbr, feats, rk, out, P,
+                                                          c, nn, A, K, C, G, sigma);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The same contraction on bf16 feature rows: bf16 w times bf16 features,
-// f32 sums, bf16 t.
+// The same contraction on bf16 feature rows, on the tensor cores: bf16 w
+// times bf16 features, f32 sums, bf16 t.  Requires C in {8, 16, ..., 64} and
+// K <= 32.
 ETCH_API int etch_interconv_t_bf16(const float* xyz, const float* centers,
                                    const int32_t* nbr, const void* feats, const float* rk,
                                    void* out, int b, int P, int c, int nn, int A, int K, int C,
-                                   int G, float sigma, cudaStream_t stream) {
-  return launch_interconv_t<bf16>(xyz, centers, nbr, feats, rk, out, b, P, c, nn, A, K, C, G,
-                                  sigma, stream);
+                                   float sigma, cudaStream_t stream) {
+  if (K > kKp || C % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (C / 8) {
+#define ETCH_CASE(nt)                                                                       \
+  case nt:                                                                                  \
+    return launch_interconv_mma<nt>(xyz, centers, nbr, feats, rk, out, b, P, c, nn, A, K, \
+                                    sigma, stream);
+    ETCH_CASE(1) ETCH_CASE(2) ETCH_CASE(3) ETCH_CASE(4)
+    ETCH_CASE(5) ETCH_CASE(6) ETCH_CASE(7) ETCH_CASE(8)
+#undef ETCH_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Occupancy (all-ones features): out (b, c, A*K).

@@ -38,6 +38,11 @@ from etch_tpu_torch.nn.bf16 import BF16, mm, rnd
 # csrc/dircore.cu compiles these widths in; narrower heads are zero-padded
 _ROWS, _E, _V = 64, 64, 128
 _HEAD_SIZES = (1, 2, 4, 8, 16)
+_ROW_PAD = 8   # the kernel's shared-memory rows hold 8 more bf16 than the matrix
+# packed weight matrices, in the kernel's order: name -> (rows, columns)
+_W_LAYOUT = {**{n: (_E, _E) for n in ("wq0", "wk0", "wv0", "wc0", "wq1", "wk1", "wv1")},
+             "wc1": (_E, _V), "wm0": (_V, _V), "wm1": (_V, _V)}
+_F_LAYOUT = {"bc0": _E, "bc1": _V, "bm0": _V, "bm1": _V, "wr": _V}
 
 
 def _num_layers(params) -> int:
@@ -100,6 +105,18 @@ def _pad(t, *shape):
     return F.pad(t, pads)
 
 
+def pack_weights(params, device):
+    """The kernel's weight image: w, the bf16 matrices of `_W_LAYOUT` in
+    order, each zero-padded to the compiled widths and each row to width +
+    `_ROW_PAD` (the padded rows `csrc/dircore.cu` copies into shared memory
+    as they are), flattened; f, the f32 vectors of `_F_LAYOUT` (wr's one
+    column), zero-padded."""
+    p = {k: v.to(device=device, dtype=torch.float32) for k, v in params.items()}
+    w = torch.cat([_pad(p[n], r, c + _ROW_PAD).reshape(-1) for n, (r, c) in _W_LAYOUT.items()])
+    f = torch.cat([_pad(p[n] if n != "wr" else p[n][:, 0], m) for n, m in _F_LAYOUT.items()])
+    return w.to(BF16).contiguous(), f.contiguous()
+
+
 def direction_core_cuda(tokens, params, num_heads: int):
     """The kernel: tokens (M, A, E) bf16 on the card, two layers ->
     (M, A) f32 anchor weights (br added here, as the TPU kernel's caller
@@ -115,19 +132,13 @@ def direction_core_cuda(tokens, params, num_heads: int):
         raise ValueError(f"dircore: needs A <= {_ROWS}, E <= {_E}, V <= {_V} and a "
                          f"head size in {_HEAD_SIZES}; got A={A}, E={E}, V={V}, "
                          f"{num_heads} heads")
-    p = {k: v.to(device=device, dtype=torch.float32) for k, v in params.items()}
-    sq = [_pad(p[n], _E, _E) for n in ("wq0", "wk0", "wv0", "wc0", "wq1", "wk1", "wv1")]
-    w = torch.cat([t.reshape(-1) for t in sq + [
-        _pad(p["wc1"], _E, _V), _pad(p["wm0"], _V, _V), _pad(p["wm1"], _V, _V)]])
-    f = torch.cat([_pad(p["bc0"], _E), _pad(p["bc1"], _V), _pad(p["bm0"], _V),
-                   _pad(p["bm1"], _V), _pad(p["wr"][:, 0], _V)])
-    w = w.to(BF16).contiguous()
+    w, f = pack_weights(params, device)
     x = tokens if E == _E else _pad(tokens, M, A, _E).contiguous()
     out = torch.empty((M, A), dtype=torch.float32, device=device)
     _build.launch("dircore", "etch_dircore", device, _build.ptr(x), _build.ptr(w),
                   _build.ptr(f), _build.ptr(out), M, A, num_heads, hs,
                   1.0 / math.sqrt(hs))
-    return out + p["br"]
+    return out + params["br"].to(device=device, dtype=torch.float32)
 
 
 def direction_core(tokens, params, num_heads: int, chunk: int):

@@ -37,9 +37,12 @@ from etch_tpu_torch import _build
 from etch_tpu_torch.nn.bf16 import BF16, rnd
 from etch_tpu_torch.ops.grouping import group_points
 
-_TK, _TC = 3, 4        # per-thread (k, c) micro-tile of csrc/interconv.cu
-_MAX_THREADS = 256     # threads per block the anchor group G is sized for
+_TK, _TC = 3, 4        # per-thread (k, c) micro-tile of the f32 body
+_MAX_THREADS = 256     # threads per block the f32 body's anchor group G is sized for
 _SMEM_BYTES = 227 * 1024
+# the bf16 body (tensor cores): 4 warps a block, kernel points padded to 32
+# rows (two m16 tiles), C a multiple of the n8 tile up to 64
+_MMA_WARPS, _MMA_KP, _MMA_CS = 4, 32, range(8, 65, 8)
 
 
 def _weights(xyz, centers, nbr, rk, sigma):
@@ -90,6 +93,23 @@ def _anchor_group(A: int, per_anchor: int) -> int:
                if A % g == 0 and g * per_anchor <= max(_MAX_THREADS, per_anchor))
 
 
+def mma_smem_bytes(nn: int, K: int, C: int) -> int:
+    """Shared memory of one block of the bf16 body (`csrc/interconv.cu`):
+    offsets (float4) and indices of nn padded to 16 neighbours, then per
+    warp two feature tiles of max(nn_pad, K) rows of C + 8 bf16 values."""
+    np_ = -(-nn // 16) * 16
+    return 20 * np_ + _MMA_WARPS * 2 * max(np_, K) * (C + 8) * 2
+
+
+def check_mma_geometry(nn: int, K: int, C: int) -> None:
+    """Raise on a contraction the bf16 body does not take."""
+    if C not in _MMA_CS or K > _MMA_KP:
+        raise ValueError(f"interconv_t_bf16: needs C in {{8, 16, ..., 64}} and K <= "
+                         f"{_MMA_KP}, got C={C}, K={K}")
+    if mma_smem_bytes(nn, K, C) > _SMEM_BYTES:
+        raise ValueError(f"interconv_t_bf16: nn={nn} neighbours do not fit shared memory")
+
+
 def _check_geometry(name, xyz, centers, nbr, rk):
     device = _build.check_cuda(name, (xyz, torch.float32),
                                (centers, torch.float32), (nbr, torch.int32),
@@ -104,7 +124,8 @@ def _check_geometry(name, xyz, centers, nbr, rk):
 
 
 def interconv_t_cuda(xyz, centers, nbr, feats, rk, sigma: float, A: int):
-    """f32 feature rows launch `interconv_t`, bf16 rows `interconv_t_bf16`."""
+    """f32 feature rows launch `interconv_t` (FP32 FMAs), bf16 rows
+    `interconv_t_bf16` (tensor cores)."""
     bf16 = feats.dtype == BF16
     name = "interconv_t_bf16" if bf16 else "interconv_t"
     device = _check_geometry(name, xyz, centers, nbr, rk)
@@ -116,19 +137,24 @@ def interconv_t_cuda(xyz, centers, nbr, feats, rk, sigma: float, A: int):
     if feats.shape != (B, P, A * C) or rk.shape[0] != A * K:
         raise ValueError(f"interconv_t: feats {tuple(feats.shape)} is not "
                          f"(B, P, A*C) for A={A}")
-    if K % _TK or C % _TC:
-        raise ValueError(f"interconv_t: needs K % {_TK} == 0 and C % {_TC} "
-                         f"== 0, got K={K}, C={C}")
-    G = _anchor_group(A, (K // _TK) * (C // _TC))
-    if G * (K // _TK) * (C // _TC) > 1024:
-        raise ValueError(f"interconv_t: C={C} is too wide for one block")
-    if 4 * nn * (4 + G * K + G * C) > _SMEM_BYTES:
-        raise ValueError(f"interconv_t: nn={nn} neighbours do not fit shared "
-                         f"memory")
+    if bf16:
+        check_mma_geometry(nn, K, C)
+        geometry = ()
+    else:
+        if K % _TK or C % _TC:
+            raise ValueError(f"interconv_t: needs K % {_TK} == 0 and C % {_TC} "
+                             f"== 0, got K={K}, C={C}")
+        G = _anchor_group(A, (K // _TK) * (C // _TC))
+        if G * (K // _TK) * (C // _TC) > 1024:
+            raise ValueError(f"interconv_t: C={C} is too wide for one block")
+        if 4 * nn * (4 + G * K + G * C) > _SMEM_BYTES:
+            raise ValueError(f"interconv_t: nn={nn} neighbours do not fit shared "
+                             f"memory")
+        geometry = (G,)
     out = torch.empty((B, c, A, K, C), dtype=feats.dtype, device=device)
     _build.launch(name, f"etch_{name}", device, _build.ptr(xyz),
                   _build.ptr(centers), _build.ptr(nbr), _build.ptr(feats),
-                  _build.ptr(rk), _build.ptr(out), B, P, c, nn, A, K, C, G,
+                  _build.ptr(rk), _build.ptr(out), B, P, c, nn, A, K, C, *geometry,
                   float(sigma))
     return out
 

@@ -188,15 +188,20 @@ def build_pipeline(cfg: EtchConfig, markerset: Dict[str, int],
                    datafolder_root: str = ".", allow_synthetic_body: bool = False,
                    rng_seed: int = 0,
                    state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                   device="cpu") -> InferencePipeline:
-    """Construct the pipeline on `device`.  `state_dict` (e.g. from
-    `convert.flax_to_state_dict`) supplies the weights; without it they are
-    drawn from a `torch.Generator` seeded with `rng_seed`."""
+                   device="cuda") -> InferencePipeline:
+    """Construct the pipeline on `device` (the card unless the caller asks
+    for the CPU).  `state_dict` (e.g. from `convert.flax_to_state_dict`)
+    supplies the weights; without it they are drawn from a `torch.Generator`
+    seeded with `rng_seed`."""
     if checkpoint_path is not None:
         raise NotImplementedError(
             f"{checkpoint_path}: restoring a checkpoint (train/checkpoint.py, orbax) is "
             f"not ported yet; the repository holds no trained checkpoint.  Convert flax "
             f"weights with convert.flax_to_state_dict and pass state_dict= instead")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"build_pipeline(device={str(device)!r}): torch sees no CUDA "
+                           f"device (pass device=\"cpu\" to run on the CPU)")
     model = EtchNet(cfg)
     if state_dict is None:
         init_params(model, torch.Generator().manual_seed(rng_seed))

@@ -293,3 +293,55 @@ def test_wrappers_refuse_bad_inputs(cuda):
         grouped_head.grouped_head_cuda(torch.zeros((4, 8), device=cuda),
                                        *(torch.zeros(s, device=cuda)
                                          for s in ((8, 16), (16,), (2, 8), (2,))))
+
+
+@pytest.mark.parametrize("C", [8, 32, 64])
+@pytest.mark.parametrize("c", [1, 226, 452, 512])
+def test_interconv_t_bf16_ragged_chunks(cuda, C, c):
+    """The tensor-core body at the widths of the tiny and full networks and
+    the chunk sizes InterSO3Conv streams (512 and the ragged tails 452, 226),
+    full 64-neighbour balls."""
+    xyz, ctr, nbr, feats, rk, sigma = _conv_inputs(cuda, C, c=c, nn=64, radius=0.3)
+    fb = feats.to(torch.bfloat16)
+    before = _build.launches["interconv_t_bf16"]
+    out = interconv.interconv_t(xyz, ctr, nbr, fb, rk, sigma, 60)
+    assert _build.launches["interconv_t_bf16"] == before + 1
+    assert out.shape == (2, c, 60, 24, C) and out.dtype == torch.bfloat16
+    _close_bf16(out, interconv.interconv_t_torch(xyz, ctr, nbr, fb, rk, sigma, 60))
+
+
+def test_interconv_t_f32_keeps_the_fp32_body(cuda):
+    """f32 rows still launch `interconv_t` (FP32 FMAs), within 1e-5 * max|t|."""
+    xyz, ctr, nbr, feats, rk, sigma = _conv_inputs(cuda, 32, nn=64, radius=0.3)
+    before = dict(_build.launches)
+    out = interconv.interconv_t(xyz, ctr, nbr, feats, rk, sigma, 60)
+    assert _build.launches["interconv_t"] == before["interconv_t"] + 1
+    assert _build.launches["interconv_t_bf16"] == before["interconv_t_bf16"]
+    ref = interconv.interconv_t_torch(xyz, ctr, nbr, feats, rk, sigma, 60)
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_interconv_t_bf16_refuses_unsupported_widths(cuda):
+    xyz, ctr, nbr, feats, rk, sigma = _conv_inputs(cuda, 4)
+    with pytest.raises(ValueError, match="C in"):
+        interconv.interconv_t_cuda(xyz, ctr, nbr, feats.to(torch.bfloat16), rk, sigma, 60)
+
+
+@pytest.mark.parametrize("hs", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("M", [1, 133, 2000])
+def test_dircore_kernel_head_sizes(cuda, M, hs):
+    """Every head size the kernel takes, at point counts below, near and
+    above one point per resident group of the grid.  M = 1 is 64 launches
+    of one point each, checked together: one point's 60 outputs are too few
+    for the median criterion, which a single bf16 rounding flip moves."""
+    params = _dircore_params(cuda, 64, 128)
+    n = 64 if M == 1 else M
+    tok = torch.from_numpy(np.random.RandomState(M).randn(n, 60, 64).astype(np.float32))
+    tok = tok.to(cuda, torch.bfloat16)
+    before = _build.launches["dircore"]
+    out = torch.cat([dircore.direction_core_cuda(tok[s:s + M], params, 64 // hs)
+                     for s in range(0, n, M)])
+    assert _build.launches["dircore"] == before + n // M
+    assert out.shape == (n, 60)
+    _close_bf16(out, dircore.direction_core_torch(tok, params, 64 // hs))
