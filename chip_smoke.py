@@ -8,9 +8,15 @@ built at first use).  Phases, each of which raises on failure:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc the kernels, print the build time and ptxas register use;
-  3. kernel vs plain PyTorch version on the card, at the shapes of the main
-     paths: FPS, kNN and ball-query indices must be equal, the f32 inter-conv
-     contraction (C >= 8 and C == 1 rows) and occupancy conv within
+  3. kernel vs plain PyTorch version on the card, at every shape a request
+     launches it at on the main paths (FPS at the EPN's and the U-Net's five
+     sampling shapes, kNN at the U-Net's fourteen, ball query at the four
+     EPN convs, both contractions at conv1, conv2 and conv3 in 512-center
+     chunks and their ragged last chunk, the occupancy convs likewise, the
+     anchor attention at full and ragged 2048-point chunks, vector attention
+     at each U-Net level), each with its launches a request: FPS, kNN and
+     ball-query indices must be equal, the f32 inter-conv contraction (3xTF32
+     on the tensor cores; C >= 4 and C == 1 rows) and occupancy conv within
      1e-5 * max|t| (f32 sums in another order); the bf16 kernels (contraction
      on bf16 rows, C >= 8 and C == 1, occupancy conv with its projection,
      direction core, anchor attention, vector attention, grouped head) within
@@ -18,11 +24,12 @@ built at first use).  Phases, each of which raises on failure:
      |diff| / (|plain| + 1e-2) <= 1e-3 (the same rounding points, another
      summation order); kernel and plain times side by side with each
      kernel's bound (the larger of its bytes over 3.35 TB/s and its
-     operations over 989 TFLOP/s of bf16 tensor work or 67 TFLOP/s of FP32,
-     from the shapes: `bound`), and for the anchor attention the time of
-     `scaled_dot_product_attention` on the same inputs (no other kernel has
-     one PyTorch call that computes its function); the bf16 contraction at
-     all three contraction shapes of a request (conv1, conv2, conv3);
+     operations over 989 TFLOP/s of bf16 tensor work, 495 TFLOP/s of TF32
+     for the f32 contraction's three passes, or 67 TFLOP/s of FP32, from
+     the shapes: `bound`), each kernel's gap (the sum over a request's
+     launches of kernel time minus bound), and for the anchor attention the
+     time of `scaled_dot_product_attention` on the same inputs (no other
+     kernel has one PyTorch call that computes its function);
   4. small-input reference: the serving step at tiny widths on the card
      (kernels) against the same weights on the CPU (plain versions), in five
      variants (SMALL_STEPS): f32; bf16 with two direction layers (the fused
@@ -46,7 +53,7 @@ built at first use).  Phases, each of which raises on failure:
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on a path and per request, its headline shape's times, bound and
-library time, and every shape's numbers); the last line is
+library time, its gap, and every shape's numbers); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the etch_tpu_torch package beside it, the script exits non-zero
 before printing either.
@@ -68,7 +75,7 @@ TIMED_REQUESTS = 3
 MARKERSET = {f"M{i}": int(v) for i, v in enumerate(np.linspace(0, 6889, 86).astype(int))}
 INTERCONV_RTOL = 1e-5   # max |kernel - plain| <= 1e-5 * max |plain|
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit) for the bounds
-PEAK_BYTES_S, PEAK_BF16_TENSOR, PEAK_FP32 = 3.35e12, 989e12, 67e12
+PEAK_BYTES_S, PEAK_BF16_TENSOR, PEAK_TF32_TENSOR, PEAK_FP32 = 3.35e12, 989e12, 495e12, 67e12
 BF16_ATOL = 1e-2        # bf16 kernels: max |kernel - plain| <= 1e-2 * max |plain|
 BF16_MEDIAN_REL = 1e-3  # and median |kernel - plain| / (|plain| + 1e-2) <= 1e-3
 # the kernels each serving path launches (and no others): f32, bf16 with the
@@ -114,14 +121,15 @@ def capsule_clouds(batch, n, seed=0):
     return np.stack([r * np.cos(th), r * np.sin(th), z], axis=-1).astype(np.float32)
 
 
-def bound(bytes_, tensor_flop=0.0, fp32_flop=0.0):
+def bound(bytes_, tensor_flop=0.0, fp32_flop=0.0, tensor_peak=PEAK_BF16_TENSOR):
     """Least time (ms) the card could take for a kernel's work, and what sets
     it: `bytes_` moved (each input read once, each output written once) over
-    the memory rate, or the operations over their peak (bf16 tensor-core
-    products, FP32 arithmetic outside the tensor cores; the two units run
-    side by side, so the slower of the two)."""
+    the memory rate, or the operations over their peak (tensor-core products
+    at `tensor_peak`, bf16 unless said otherwise, and FP32 arithmetic outside
+    the tensor cores; the two units run side by side, so the slower of the
+    two)."""
     t = {"bytes": bytes_ / PEAK_BYTES_S,
-         "operations": max(tensor_flop / PEAK_BF16_TENSOR, fp32_flop / PEAK_FP32)}
+         "operations": max(tensor_flop / tensor_peak, fp32_flop / PEAK_FP32)}
     by = max(t, key=t.get)
     return t[by] * 1e3, by
 
@@ -130,17 +138,26 @@ def bound(bytes_, tensor_flop=0.0, fp32_flop=0.0):
 WEIGHT_FLOP = 11
 
 
-def interconv_bound(B, P, c, nn, A, K, C, elem, tensor):
+def interconv_bound(B, P, c, nn, A, K, C, elem):
     """The contraction: xyz, centers, indices, rk and the whole (B, P, A*C)
     row tensor read, t (B, c, A, K, C) written; the weights on FP32 cores,
-    the products on the tensor cores (bf16) or FP32 cores (f32 rows)."""
+    the products on the tensor cores: bf16 for bf16 rows (elem 2), and for
+    f32 rows (elem 4) three TF32 passes, the least the tensor cores need for
+    f32-accurate products whatever the kernel's design."""
     bytes_ = (B * P * 3 + B * c * 3 + A * K * 3) * 4 + B * c * nn * 4 + \
         (B * P * A * C + B * c * A * K * C) * elem
     products = 2.0 * B * c * nn * A * K * C
     weights = float(WEIGHT_FLOP) * B * c * nn * A * K
-    if tensor:
+    if elem == 2:
         return bound(bytes_, products, weights)
-    return bound(bytes_, 0.0, weights + products)
+    return bound(bytes_, 3.0 * products, weights, PEAK_TF32_TENSOR)
+
+
+def chunks(n, size=512):
+    """{chunk size: count} of n centers streamed `size` at a time, as
+    InterSO3Conv does (the last chunk ragged)."""
+    full, rest = divmod(n, size)
+    return {size: full, **({rest: 1} if rest else {})}
 
 
 def cuda_ms(torch, fn, reps):
@@ -160,9 +177,10 @@ def cuda_ms(torch, fn, reps):
 def compare_kernels(torch, dev):
     """Phase 3: every kernel against its plain version at main-path shapes.
     Returns {kernel: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-    "library_ms", "shapes"}}: the numbers of the first (headline) shape of
-    each kernel, the largest error over its shapes, and every shape's
-    numbers under "shapes"."""
+    "library_ms", "gap_ms", "shapes"}}: the numbers of the first (headline)
+    shape of each kernel, the largest error over its shapes, the sum over a
+    request's launches of (ms - bound), and every shape's numbers, with its
+    launches a request, under "shapes"."""
     from etch_tpu_torch.geometry.icosahedral import get_anchors
     from etch_tpu_torch.geometry.kernel_points import get_kernel_points
     from etch_tpu_torch.nn import interconv
@@ -175,40 +193,57 @@ def compare_kernels(torch, dev):
 
     results = {}
 
-    def record(kernel, shape, err, ms, plain_ms, bnd, library_ms=None):
+    def record(kernel, shape, lpr, err, ms, plain_ms, bnd, library_ms=None):
+        """One shape's numbers; `lpr`: its launches a request on the path
+        that runs the kernel (worked out from the code; phase 5 checks each
+        kernel's sum against the launches it counts)."""
         bound_ms, by = bnd
         lib = "" if library_ms is None else f"  library {library_ms:.3f} ms"
         print(f"  {kernel:19s} {shape:34s} max_abs_err {err:.3g}  kernel {ms:.3f} ms"
               f"  plain {plain_ms:.3f} ms  bound {bound_ms:.4f} ms ({by}, "
-              f"{100 * bound_ms / ms:.1f}% of it){lib}")
+              f"{100 * bound_ms / ms:.1f}% of it){lib}  x{lpr}/request")
         entry = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": by, "max_abs_err": err}
+                 "bound_by": by, "max_abs_err": err, "launches_per_request": lpr,
+                 "gap_ms": lpr * (ms - bound_ms)}
         prev = results.get(kernel)
         if prev is None:
             results[kernel] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                "bound_ms": bound_ms, "bound_by": by,
-                               "library_ms": library_ms, "shapes": [entry]}
+                               "library_ms": library_ms, "gap_ms": entry["gap_ms"],
+                               "shapes": [entry]}
         else:
             prev["max_abs_err"] = max(prev["max_abs_err"], err)
+            prev["gap_ms"] += entry["gap_ms"]
             prev["shapes"].append(entry)
 
     xyz = torch.from_numpy(capsule_clouds(B, N, seed=1)).to(dev)
 
-    centers = {}
-    for m in (2500, 1250):
-        out = fp.fps_cuda(xyz, m)
-        ref = fp.fps_torch(xyz, m)
+    # FPS launches of a request: the EPN's 5000->2500 and the U-Net
+    # geometry's 5000->1250->312->78->19 (nn/point_transformer.py)
+    clouds = {N: xyz}
+    for n, m in ((N, 2500), (N, 1250), (1250, 312), (312, 78), (78, 19)):
+        src = clouds[n]
+        out = fp.fps_cuda(src, m)
+        ref = fp.fps_torch(src, m)
         if not torch.equal(out, ref):
-            raise AssertionError(f"fps {N}->{m}: kernel and plain indices differ")
-        record("fps", f"B={B} {N}->{m}", 0.0,
-               cuda_ms(torch, lambda: fp.fps_cuda(xyz, m), 5),
-               cuda_ms(torch, lambda: fp.fps_torch(xyz, m), 1),
-               bound(B * N * 12 + B * m * 4, 0.0, 10.0 * B * m * N))
-        centers[m] = gather_points(xyz, out).contiguous()
+            raise AssertionError(f"fps {n}->{m}: kernel and plain indices differ")
+        record("fps", f"B={B} {n}->{m}", 1, 0.0,
+               cuda_ms(torch, lambda: fp.fps_cuda(src, m), 5),
+               cuda_ms(torch, lambda: fp.fps_torch(src, m), 1),
+               bound(B * n * 12 + B * m * 4, 0.0, 10.0 * B * m * n))
+        clouds[m] = gather_points(src, out).contiguous()
 
-    for k, q, s, label in ((8, xyz, xyz, f"k=8 {N}x{N}"),
-                           (16, centers[1250], xyz, f"k=16 1250x{N}"),
-                           (3, xyz, centers[1250], f"k=3 {N}x1250")):
+    # kNN launches of a request (k, queries, supports, launches): each U-Net
+    # level's self neighbours, the down neighbours of levels 1-4 and the up
+    # 3-NN of levels 0-3; 5000x1250 k=3 also propagates the EPN's features
+    lv = (N, 1250, 312, 78, 19)
+    knn_shapes = [(8, N, N, 1), (16, 1250, N, 1), (3, N, 1250, 2)]
+    knn_shapes += [(16, lv[l], lv[l], 1) for l in range(1, 5)]
+    knn_shapes += [(16, lv[l], lv[l - 1], 1) for l in range(2, 5)]
+    knn_shapes += [(3, lv[l], lv[l + 1], 1) for l in range(1, 4)]
+    for k, Q, S, lpr in knn_shapes:
+        q, s = clouds[Q], clouds[S]
+        label = f"k={k} {Q}x{S}"
         idx, d2 = kn.knn_cuda(q, s, k)
         ridx, rd2 = kn.knn_torch(q, s, k)
         if not torch.equal(idx, ridx):
@@ -216,23 +251,30 @@ def compare_kernels(torch, dev):
         err = (d2 - rd2).abs().max().item()
         if err != 0.0:
             raise AssertionError(f"knn {label}: squared distances differ by {err}")
-        Q, S = q.shape[1], s.shape[1]
-        record("knn", f"B={B} {label}", err,
+        record("knn", f"B={B} {label}", lpr, err,
                cuda_ms(torch, lambda: kn.knn_cuda(q, s, k), 5),
                cuda_ms(torch, lambda: kn.knn_torch(q, s, k), 2),
                bound(B * (Q + S) * 12 + B * Q * k * 8, 0.0, 8.0 * B * Q * S))
 
+    # ball query of each EPN conv: its centers among its input points
+    # (conv0 samples 2500 by FPS, conv2 the first 1250 lazily)
     plan = backbone_plan(EtchConfig(num_point=N, batch_size=B))
-    conv0, conv1, conv3 = plan[0][0], plan[0][1], plan[1][1]
-    q2500 = centers[2500]
-    r0, ns = conv0["radius"], conv0["n_neighbor"]
-    nbr0 = bq.ball_query_cuda(q2500, xyz, r0, ns)
-    if not torch.equal(nbr0, bq.ball_query_torch(q2500, xyz, r0, ns)):
-        raise AssertionError("ball_query: kernel and plain indices differ")
-    record("ball_query", f"B={B} 2500x{N} r={r0:.3f} ns={ns}", 0.0,
-           cuda_ms(torch, lambda: bq.ball_query_cuda(q2500, xyz, r0, ns), 5),
-           cuda_ms(torch, lambda: bq.ball_query_torch(q2500, xyz, r0, ns), 2),
-           bound(B * (2500 + N) * 12 + B * 2500 * ns * 4, 0.0, 8.0 * B * 2500 * N))
+    specs = (plan[0][0], plan[0][1], plan[1][0], plan[1][1])
+    q2500 = clouds[2500]
+    epn_pts = {N: xyz, 2500: q2500, 1250: q2500[:, :1250].contiguous()}
+    nbrs = []
+    for i, spec in enumerate(specs):
+        q, s = epn_pts[spec["n_out"]], epn_pts[spec["n_in"]]
+        r, ns = spec["radius"], spec["n_neighbor"]
+        nbr = bq.ball_query_cuda(q, s, r, ns)
+        if not torch.equal(nbr, bq.ball_query_torch(q, s, r, ns)):
+            raise AssertionError(f"ball_query conv{i}: kernel and plain indices differ")
+        Q, S = q.shape[1], s.shape[1]
+        record("ball_query", f"B={B} {Q}x{S} r={r:.3f} ns={ns}", 1, 0.0,
+               cuda_ms(torch, lambda: bq.ball_query_cuda(q, s, r, ns), 5),
+               cuda_ms(torch, lambda: bq.ball_query_torch(q, s, r, ns), 2),
+               bound(B * (Q + S) * 12 + B * Q * ns * 4, 0.0, 8.0 * B * Q * S))
+        nbrs.append(nbr)
 
     anchors = get_anchors(60)
 
@@ -241,15 +283,15 @@ def compare_kernels(torch, dev):
         rk = np.einsum("aij,kj->aki", anchors, kp).reshape(-1, 3)
         return torch.from_numpy(np.ascontiguousarray(rk)).to(dev)
 
-    def check(kernel, label, out, ref, fn, plain_fn, bnd):
+    def check(kernel, label, lpr, out, ref, fn, plain_fn, bnd):
         err = (out - ref).abs().max().item()
         scale = ref.abs().max().item()
         if not err <= INTERCONV_RTOL * scale:
             raise AssertionError(f"{kernel} {label}: max abs err {err} > "
                                  f"{INTERCONV_RTOL} * {scale}")
-        record(kernel, label, err, cuda_ms(torch, fn, 5), cuda_ms(torch, plain_fn, 1), bnd)
+        record(kernel, label, lpr, err, cuda_ms(torch, fn, 5), cuda_ms(torch, plain_fn, 1), bnd)
 
-    def check_bf16(kernel, label, fn, plain_fn, bnd, library_fn=None):
+    def check_bf16(kernel, label, lpr, fn, plain_fn, bnd, library_fn=None):
         out, ref = fn().float(), plain_fn().float()
         err = (out - ref).abs()
         worst, scale = err.max().item(), ref.abs().max().item()
@@ -260,34 +302,45 @@ def compare_kernels(torch, dev):
         if not (worst <= BF16_ATOL * scale and med <= BF16_MEDIAN_REL):
             raise AssertionError(f"{kernel} {label}: max abs err {worst} (limit "
                                  f"{BF16_ATOL} * {scale}), median rel err {med}")
-        record(kernel, label, worst, cuda_ms(torch, fn, 5), cuda_ms(torch, plain_fn, 1), bnd,
-               None if library_fn is None else cuda_ms(torch, library_fn, 5))
+        record(kernel, label, lpr, worst, cuda_ms(torch, fn, 5), cuda_ms(torch, plain_fn, 1),
+               bnd, None if library_fn is None else cuda_ms(torch, library_fn, 5))
 
-    # occupancy conv of conv0: one 512-center chunk of the 2500 FPS centers
-    ctr, nbr = q2500[:, :512].contiguous(), nbr0[:, :512].contiguous()
-    rk, sg = rk_of(conv0), conv0["sigma"]
-    check("interconv_ones", f"B={B} P={N} c=512 nn={ns}",
-          interconv.interconv_ones_cuda(xyz, ctr, nbr, rk, sg, 60),
-          interconv.interconv_ones_torch(xyz, ctr, nbr, rk, sg, 60),
-          lambda: interconv.interconv_ones_cuda(xyz, ctr, nbr, rk, sg, 60),
-          lambda: interconv.interconv_ones_torch(xyz, ctr, nbr, rk, sg, 60),
-          bound(B * N * 12 + B * 512 * 12 + B * 512 * ns * 4 + 1440 * 12 + B * 512 * 1440 * 4,
-                0.0, (WEIGHT_FLOP + 1.0) * B * 512 * ns * 1440))
+    # occupancy conv of conv0: the 512-center chunks of the 2500 FPS centers
+    # and the ragged last one
+    conv0 = specs[0]
+    rk, sg, ns = rk_of(conv0), conv0["sigma"], conv0["n_neighbor"]
+    for c, lpr in chunks(conv0["n_out"]).items():
+        ctr, nbr = q2500[:, :c].contiguous(), nbrs[0][:, :c].contiguous()
+        check("interconv_ones", f"B={B} P={N} c={c} nn={ns}", lpr,
+              interconv.interconv_ones_cuda(xyz, ctr, nbr, rk, sg, 60),
+              interconv.interconv_ones_torch(xyz, ctr, nbr, rk, sg, 60),
+              lambda: interconv.interconv_ones_cuda(xyz, ctr, nbr, rk, sg, 60),
+              lambda: interconv.interconv_ones_torch(xyz, ctr, nbr, rk, sg, 60),
+              bound(B * N * 12 + B * c * 12 + B * c * ns * 4 + 1440 * 12 + B * c * 1440 * 4,
+                    0.0, (WEIGHT_FLOP + 1.0) * B * c * ns * 1440))
 
+    # contraction on f32 rows: conv1 (C=32, centers of 2500), conv2 (C=32,
+    # the first 1250 of 2500: lazy sampling) and conv3 (C=64, 1250), each in
+    # 512-center chunks and a ragged last one
     gen = torch.Generator(device=dev).manual_seed(0)
-    for spec, pts in ((conv1, q2500), (conv3, centers[1250])):
-        C, P = spec["dim_in"], pts.shape[1]
+    for spec in specs[1:]:
+        C, pts, nn = spec["dim_in"], epn_pts[spec["n_in"]], spec["n_neighbor"]
+        P = pts.shape[1]
         feats = torch.randn((B, P, 60 * C), device=dev, generator=gen)
-        ctr = pts[:, :512].contiguous()          # lazy sampling: the first points
-        nbr = bq.ball_query_cuda(ctr, pts, spec["radius"], spec["n_neighbor"])
+        nbr_all = bq.ball_query_cuda(epn_pts[spec["n_out"]], pts, spec["radius"], nn)
         rk, sg = rk_of(spec), spec["sigma"]
-        check("interconv_t", f"B={B} P={pts.shape[1]} c=512 nn={spec['n_neighbor']} C={C}",
-              interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
-              interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
-              lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
-              lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
-              interconv_bound(B, P, 512, spec["n_neighbor"], 60, 24, C, 4, tensor=False))
+        for c, lpr in chunks(spec["n_out"]).items():
+            ctr = pts[:, :c].contiguous()          # lazy sampling: the first points
+            nbr = nbr_all[:, :c].contiguous()
+            check("interconv_t", f"B={B} P={P} c={c} of {spec['n_out']} nn={nn} C={C}", lpr,
+                  interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
+                  interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
+                  lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
+                  lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
+                  interconv_bound(B, P, c, nn, 60, 24, C, 4))
         del feats
+    torch.cuda.empty_cache()
+
     def c1_bound(nn, elem):
         """C == 1 body at conv1's geometry: 512 of 2500 centers."""
         bytes_ = (B * 2500 * 3 + B * 512 * 3 + 1440 * 3) * 4 + B * 512 * nn * 4 + \
@@ -296,11 +349,12 @@ def compare_kernels(torch, dev):
 
     # contraction on 1-channel rows (an EPN schedule whose conv1 has C=1), at
     # conv1's geometry
+    conv1 = specs[1]
     feats = torch.randn((B, q2500.shape[1], 60), device=dev, generator=gen)
     ctr = q2500[:, :512].contiguous()
     nbr = bq.ball_query_cuda(ctr, q2500, conv1["radius"], conv1["n_neighbor"])
     rk, sg = rk_of(conv1), conv1["sigma"]
-    check("interconv_t_c1", f"B={B} P=2500 c=512 nn={conv1['n_neighbor']} C=1 f32",
+    check("interconv_t_c1", f"B={B} P=2500 c=512 nn={conv1['n_neighbor']} C=1 f32", 1,
           interconv.interconv_t_c1_cuda(q2500, ctr, nbr, feats, rk, sg, 60),
           interconv.interconv_t_c1_torch(q2500, ctr, nbr, feats, rk, sg, 60),
           lambda: interconv.interconv_t_c1_cuda(q2500, ctr, nbr, feats, rk, sg, 60),
@@ -308,59 +362,60 @@ def compare_kernels(torch, dev):
           c1_bound(conv1["n_neighbor"], 4))
     del feats
     torch.cuda.empty_cache()
-    compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, check_bf16,
+    compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbrs[0], rk_of, check_bf16,
                          c1_bound)
     torch.cuda.empty_cache()
     return results
 
 
-def compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, check,
+def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, check,
                          c1_bound):
     """Phase 3, the bf16 path's kernels at its main-path shapes, on random
     weights of the reference widths."""
     from etch_tpu_torch.nn import attention, dircore, grouped_head, interconv, vector_attention
     from etch_tpu_torch.nn.point_transformer import unet_geometry
     from etch_tpu_torch.ops import ball_query
-    from etch_tpu_torch.utils.config import EtchConfig, backbone_plan
 
     gen = torch.Generator(device=dev).manual_seed(1)
     bf = torch.bfloat16
+    q2500 = clouds[2500]
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, device=dev, generator=gen) * scale
 
     # occupancy conv of conv0 with its (K=24 -> 32) projection
-    ctr, nbr = q2500[:, :512].contiguous(), nbr0[:, :512].contiguous()
+    conv0 = specs[0]
     rk, sg, ns = rk_of(conv0), conv0["sigma"], conv0["n_neighbor"]
     w = randn(24, conv0["dim_out"], scale=(6 / (24 + conv0["dim_out"])) ** 0.5)
-    check("interconv_ones_proj", f"B={B} P={N} c=512 nn={ns} Co={w.shape[1]}",
-          lambda: interconv.interconv_ones_proj_cuda(xyz, ctr, nbr, rk, sg, 60, w),
-          lambda: interconv.interconv_ones_proj_torch(xyz, ctr, nbr, rk, sg, 60, w),
-          bound(B * N * 12 + B * 512 * 12 + B * 512 * ns * 4 + 1440 * 12 +
-                B * 512 * 60 * w.shape[1] * 2,
-                0.0, (WEIGHT_FLOP + 1.0) * B * 512 * ns * 1440 + 2.0 * B * 512 * 1440 * w.shape[1]))
+    Co = w.shape[1]
+    for c, lpr in chunks(conv0["n_out"]).items():
+        ctr, nbr = q2500[:, :c].contiguous(), nbr0[:, :c].contiguous()
+        check("interconv_ones_proj", f"B={B} P={N} c={c} nn={ns} Co={Co}", lpr,
+              lambda: interconv.interconv_ones_proj_cuda(xyz, ctr, nbr, rk, sg, 60, w),
+              lambda: interconv.interconv_ones_proj_torch(xyz, ctr, nbr, rk, sg, 60, w),
+              bound(B * N * 12 + B * c * 12 + B * c * ns * 4 + 1440 * 12 + B * c * 60 * Co * 2,
+                    0.0, (WEIGHT_FLOP + 1.0) * B * c * ns * 1440 + 2.0 * B * c * 1440 * Co))
 
-    # contraction on bf16 feature rows: conv1 (C=32, centers of 2500), conv2
-    # (C=32, the first 1250 of 2500: lazy sampling) and conv3 (C=64, 1250)
-    plan = backbone_plan(EtchConfig(num_point=N, batch_size=B))
-    for spec, pts in ((plan[0][1], q2500), (plan[1][0], q2500), (plan[1][1], centers[1250])):
-        C, P = spec["dim_in"], pts.shape[1]
+    # contraction on bf16 feature rows: conv1, conv2 and conv3 as for f32 rows
+    for spec in specs[1:]:
+        C, pts, nn = spec["dim_in"], epn_pts[spec["n_in"]], spec["n_neighbor"]
+        P = pts.shape[1]
         feats = randn(B, P, 60 * C).to(bf)
-        ctr = pts[:, :512].contiguous()
-        nbr = ball_query(ctr, pts, spec["radius"], spec["n_neighbor"])
+        nbr_all = ball_query(epn_pts[spec["n_out"]], pts, spec["radius"], nn)
         rk, sg = rk_of(spec), spec["sigma"]
-        check("interconv_t_bf16",
-              f"B={B} P={P} c=512 of {spec['n_out']} nn={spec['n_neighbor']} C={C}",
-              lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
-              lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
-              interconv_bound(B, P, 512, spec["n_neighbor"], 60, 24, C, 2, tensor=True))
+        for c, lpr in chunks(spec["n_out"]).items():
+            ctr, nbr = pts[:, :c].contiguous(), nbr_all[:, :c].contiguous()
+            check("interconv_t_bf16", f"B={B} P={P} c={c} of {spec['n_out']} nn={nn} C={C}",
+                  lpr, lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
+                  lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
+                  interconv_bound(B, P, c, nn, 60, 24, C, 2))
         del feats
-    spec = plan[0][1]
+    spec = specs[1]
     feats = randn(B, q2500.shape[1], 60).to(bf)
     ctr = q2500[:, :512].contiguous()
     nbr = ball_query(ctr, q2500, spec["radius"], spec["n_neighbor"])
     rk, sg = rk_of(spec), spec["sigma"]
-    check("interconv_t_c1", f"B={B} P=2500 c=512 nn={spec['n_neighbor']} C=1 bf16",
+    check("interconv_t_c1", f"B={B} P=2500 c=512 nn={spec['n_neighbor']} C=1 bf16", 1,
           lambda: interconv.interconv_t_c1_cuda(q2500, ctr, nbr, feats, rk, sg, 60),
           lambda: interconv.interconv_t_c1_torch(q2500, ctr, nbr, feats, rk, sg, 60),
           c1_bound(spec["n_neighbor"], 2))
@@ -380,32 +435,38 @@ def compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, ch
     tokens = randn(B * N, 60, E).to(bf)
     M, A = B * N, 60
     flop = 2.0 * M * A * (2 * 3 * E * E + E * E + E * V + 2 * V * V + V) + 4.0 * 2 * M * A * A * E
-    check("dircore", f"M={M} A={A} E={E} H={H} V={V}",
+    check("dircore", f"M={M} A={A} E={E} H={H} V={V}", 1,
           lambda: dircore.direction_core_cuda(tokens, params, H),
           lambda: torch.cat([dircore.direction_core_torch(tokens[s:s + 2048], params, H)
                              for s in range(0, B * N, 2048)]),
           bound(M * A * E * 2 + M * A * 4, flop))
     del tokens
 
-    # anchor attention of the chunked core: one 2048-point chunk, 8 heads
-    # (its library yardstick: scaled_dot_product_attention on the same q, k,
-    # v as (2048 * H, 60, hs), q already scaled)
-    Bc, L, hs = 2048, 60, E // H
-    q, k, v = (randn(Bc, L, E, scale=hs ** -0.5 if i == 0 else 1.0).to(bf) for i in range(3))
-    qh, kh, vh = (t.reshape(Bc, L, H, hs).transpose(1, 2).reshape(Bc * H, L, hs).contiguous()
-                  for t in (q, k, v))
+    # anchor attention of the chunked core: the 2048-point chunks of a
+    # direction layer and its ragged last one, two layers, 8 heads (its
+    # library yardstick: scaled_dot_product_attention on the same q, k, v as
+    # (Bc * H, 60, hs), q already scaled)
+    L, hs = 60, E // H
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    check("attention", f"Bc={Bc} L={L} E={E} H={H}",
-          lambda: attention.attention_cuda(q, k, v, H),
-          lambda: attention.attention_torch(q, k, v, H),
-          bound(3 * Bc * L * E * 2 + Bc * L * E * 4, 4.0 * Bc * L * L * E),
-          library_fn=lambda: sdpa(qh, kh, vh, scale=1.0))
-    del q, k, v, qh, kh, vh
+    for Bc, per_layer in chunks(B * N, 2048).items():
+        q, k, v = (randn(Bc, L, E, scale=hs ** -0.5 if i == 0 else 1.0).to(bf) for i in range(3))
+        qh, kh, vh = (t.reshape(Bc, L, H, hs).transpose(1, 2).reshape(Bc * H, L, hs).contiguous()
+                      for t in (q, k, v))
+        check("attention", f"Bc={Bc} L={L} E={E} H={H}", 2 * per_layer,
+              lambda: attention.attention_cuda(q, k, v, H),
+              lambda: attention.attention_torch(q, k, v, H),
+              bound(3 * Bc * L * E * 2 + Bc * L * E * 4, 4.0 * Bc * L * L * E),
+              library_fn=lambda: sdpa(qh, kh, vh, scale=1.0))
+        del q, k, v, qh, kh, vh
 
-    # vector attention at each U-Net level's shape (both heads' widths at level 0)
+    # vector attention at each U-Net level's shape and width (magnitude
+    # planes 64, 128, 256, 256, 512; confidence 128 at level 0), launches a
+    # request: level l runs blocks[l] - 1 encoder blocks and one decoder
+    # block in each U-Net, blocks (2, 3, 4, 6, 3)
     xyz5 = xyz.contiguous()
     geom = unet_geometry(xyz5, (1, 4, 4, 4, 4), (8, 16, 16, 16, 16))
-    for lvl, c in ((0, 64), (0, 128), (1, 128), (2, 256), (3, 256), (4, 512)):
+    for lvl, c, lpr in ((0, 64, 2), (0, 128, 2), (1, 128, 6), (2, 256, 8), (3, 256, 12),
+                        (4, 512, 6)):
         idx = geom[lvl]["self"]
         Bl, Nl, nsl = idx.shape
         cs = c // 8
@@ -415,7 +476,7 @@ def compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, ch
                 torch.stack([randn(cs).abs() + 0.5, randn(cs)]),
                 randn(cs, cs, scale=cs ** -0.5), randn(cs))
         R = Bl * Nl
-        check("vector_attention", f"R={R} ns={nsl} c={c}",
+        check("vector_attention", f"R={R} ns={nsl} c={c}", lpr,
               lambda: vector_attention.vector_attention_cuda(*args),
               lambda: vector_attention.vector_attention_torch(*args),
               bound(R * c * 2 * 3 + R * nsl * (4 + c * 2) + R * c * 4,
@@ -427,7 +488,7 @@ def compare_bf16_kernels(torch, dev, xyz, q2500, nbr0, conv0, rk_of, centers, ch
              randn(k * c0, scale=0.1), randn(k, c0, scale=(6 / (k + c0)) ** 0.5),
              randn(k, scale=0.1))
     R = B * N
-    check("grouped_head", f"R={R} c0={c0} k={k}",
+    check("grouped_head", f"R={R} c0={c0} k={k}", 1,
           lambda: grouped_head.grouped_head_cuda(*gargs),
           lambda: grouped_head.grouped_head_torch(*gargs),
           bound(R * c0 * 2 + c0 * k * c0 * 2 + R * k * 4, 2.0 * R * c0 * k * c0,
@@ -739,6 +800,13 @@ def main():
     idle = [name for name in SOURCES if not launches.get(name)]
     if idle:
         raise AssertionError(f"kernels never launched on a path: {idle}")
+    # phase 3's launches a request per shape, worked out from the code, must
+    # add up to what phase 5 counted (the C == 1 body runs on no full-width path)
+    for name, k in kernels.items():
+        lpr = sum(e["launches_per_request"] for e in k["shapes"])
+        if name != "interconv_t_c1" and lpr != per_request[name][0]:
+            raise AssertionError(f"{name}: phase 3 counts {lpr} launches a request, "
+                                 f"the {per_request[name][1]} path {per_request[name][0]}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"etch_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[name],

@@ -40,8 +40,8 @@ _SIGNATURES = {
     "etch_fps": (_P, _P, _I, _I, _I, _P),
     "etch_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "etch_ball_query": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
-    "etch_interconv_t": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _P),
+    "etch_interconv_t": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                         _P),
     "etch_interconv_t_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _F, _P),
     "etch_interconv_ones": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),

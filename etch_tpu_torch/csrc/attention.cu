@@ -16,108 +16,282 @@
 // a mask) and broadcasts maxima and denominators with one-hot matmuls, all to
 // give its matrix unit (L, H*L)-shaped products; none of that is carried over.
 //
-// Bound on the H100: FP32 instruction rate and shared-memory reads.  At L=60, E=64,
-// 8 heads a point costs 3 * L * L * E = 0.7 M FMAs (three passes over the
-// keys) and 23 KB of operands, about 30 FMAs a byte.  Design: one block per
-// point; k and v are converted to f32 in shared memory (2 * L * E * 4 bytes,
-// 30 KB at E=64); one thread per (query, head) holds its q slice and output in
-// registers and makes three passes over the L keys (max, denominator, weighted
-// sum), so no logits are stored.  Head size 8 is below the tensor cores' MMA
-// depth of 16; wgmma and several points per block are later work.
+// Bound on the H100: the bytes.  A 2048-point chunk at L=60, E=64 reads 47 MB
+// of bf16 q, k, v and writes 31 MB of f32: 0.0235 ms at 3.35 TB/s.  Next come
+// the exponentials, 67 M with the keys padded to 64, about 0.017 ms through
+// the special-function units (16 a clock an SM); the products are a few
+// GFLOP.  Design, the direction core's attention (csrc/dircore.cu) as a
+// kernel of its own:
+//   - kGroups points a block, 4 warps each; a warp owns 16 of the 64 padded
+//     query rows.  Each group copies its point's k and v into shared memory
+//     by 16-byte cp.async as bf16 rows padded by 8 elements (ldmatrix phases
+//     free of bank conflicts), with rows L..63 zero; q goes from device
+//     memory straight into A fragments.
+//   - Per head, S = q_h k_h^T on the tensor cores: m16n8k8 for head sizes up
+//     to 8 (sizes 1, 2 and 4 mask q to their head's columns of an 8-column
+//     tile, exact since the other columns add zeros), k16 steps of m16n8k16
+//     above.  Head sizes that are neither 1, 2, 4 nor a multiple of 16 are
+//     laid out in shared memory with each head padded by zero columns to 8
+//     or to a multiple of 16 (also exact); that layout is gathered element by
+//     element.
+//   - The softmax runs on the S fragments (etch_softmax_frags: keys L..63 at
+//     -inf, max and sum over a row's 4 lanes, exp as ex2.approx), and
+//     a = bf16(exp(z - m) / den) is packed straight into the A fragments of
+//     o_h = a v_h (m16n8k16 over the 64 keys, v by ldmatrix.trans).
+//   - o is staged per warp in shared memory and leaves as 16-byte streaming
+//     stores of whole rows (the f32 output is 40% of the bytes).
+// Shared memory per group: k and v, 2 x 64 x (E + 8) bf16, and the staged
+// output, 4 x 16 x (E + 8) f32: 36,864 bytes at E = 64, 73,728 a block.
 #include "common.cuh"
 
 namespace {
 
-// grid (M); block min(1024, L*H rounded up to a warp).  HS: the head size
-// when EXACT, else a bound on the runtime head size E / H.
-template <int HS, bool EXACT>
-__global__ void attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                 const bf16* __restrict__ v, float* __restrict__ out, int L,
-                                 int E, int H) {
-  extern __shared__ float smem[];
-  float* ks = smem;           // L * E
-  float* vs = ks + L * E;     // L * E
-  const size_t base = static_cast<size_t>(blockIdx.x) * L * E;
-  for (int e = threadIdx.x; e < L * E; e += blockDim.x) {
-    ks[e] = etch_f32(k[base + e]);
-    vs[e] = etch_f32(v[base + e]);
+constexpr int kRows = 64;                 // query and key rows, padded: 4 warps x 16
+constexpr int kGroups = 2;                // points a block
+constexpr int kThreads = 128 * kGroups;
+
+// How a point's heads sit in shared memory: head h in columns h*hp ..
+// h*hp + hs - 1 of ep, zero up to hp; direct when that is the row layout of
+// q, k and v themselves and rows are 16-byte multiples (cp.async, vector
+// loads and stores).
+struct Layout {
+  int L, E, H, hs, hp, ep;
+  int ld;    // k, v row stride (bf16): an odd multiple of 8
+  int ldo;   // staging row stride (f32): 8 mod 32
+  int direct;
+};
+
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Packed bf16 pair of q at `row` and layout columns col, col + 1; zero past
+// the point's L rows and in padding columns.
+__device__ __forceinline__ uint32_t q_pair(const bf16* __restrict__ qp, const Layout& ly, int row,
+                                           int col) {
+  if (row >= ly.L) return 0u;
+  if (ly.direct) return __ldg(reinterpret_cast<const unsigned*>(qp + row * ly.E + col));
+  float x[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int h = (col + i) / ly.hp, d = (col + i) % ly.hp;
+    x[i] = h < ly.H && d < ly.hs ? etch_f32(qp[row * ly.E + h * ly.hs + d]) : 0.f;
   }
-  __syncthreads();
-  const int hs = EXACT ? HS : E / H;
-  for (int p = threadIdx.x; p < L * H; p += blockDim.x) {
-    const int i = p / H, c0 = (p % H) * hs;
-    const float* kc = ks + c0;
-    const float* vc = vs + c0;
-    float qv[HS];
-#pragma unroll
-    for (int d = 0; d < HS; ++d) qv[d] = d < hs ? etch_f32(q[base + i * E + c0 + d]) : 0.f;
-    auto logit = [&](int j) {
-      float z = 0.f;
-#pragma unroll
-      for (int d = 0; d < HS; ++d)
-        if (d < hs) z = fmaf(qv[d], kc[j * E + d], z);
-      return z;
-    };
-    float m = -INFINITY;
-    for (int j = 0; j < L; ++j) m = fmaxf(m, logit(j));
-    float den = 0.f;
-    for (int j = 0; j < L; ++j) den += expf(logit(j) - m);
-    const float inv = 1.f / den;
-    float o[HS];
-#pragma unroll
-    for (int d = 0; d < HS; ++d) o[d] = 0.f;
-    for (int j = 0; j < L; ++j) {
-      const float a = etch_round_bf16(expf(logit(j) - m) * inv);
-#pragma unroll
-      for (int d = 0; d < HS; ++d)
-        if (d < hs) o[d] = fmaf(a, vc[j * E + d], o[d]);
+  return etch_pack_bf16(x[0], x[1]);
+}
+
+__device__ __forceinline__ void stage(float* st, int ldo, int col, const float (&o)[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t2 = 2 * (threadIdx.x & 3);
+  *reinterpret_cast<float2*>(st + g * ldo + col + t2) = make_float2(o[0], o[1]);
+  *reinterpret_cast<float2*>(st + (g + 8) * ldo + col + t2) = make_float2(o[2], o[3]);
+}
+
+// grid ceil(M / kGroups); block kThreads.  HT: the head size for 1, 2, 4
+// and 8 (8 also takes 3, 5, 6, 7 padded to 8), else a bound on the padded
+// head size hp (a multiple of 16).
+template <int HT>
+__global__ void __launch_bounds__(kThreads)
+attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, float* __restrict__ out, int M, Layout ly) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int group = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int point = blockIdx.x * kGroups + group;
+  if (point >= M) return;   // the whole group: only group barriers follow
+  const int tile = kRows * ly.ld;
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw) + group * 2 * tile;
+  bf16* vs = ks + tile;
+  float* st = reinterpret_cast<float*>(reinterpret_cast<bf16*>(smem_raw) + kGroups * 2 * tile) +
+              (group * 4 + warp) * 16 * ly.ldo;
+  const size_t base = static_cast<size_t>(point) * ly.L * ly.E;
+
+  const int tid = threadIdx.x & 127;
+  if (ly.direct) {
+    const int nq = ly.E / 8;   // 16-byte pieces of a row
+    for (int e = tid; e < ly.L * nq; e += 128) {
+      const int r = e / nq, c8 = 8 * (e % nq);
+      etch_cp_async16(ks + r * ly.ld + c8, k + base + r * ly.E + c8);
+      etch_cp_async16(vs + r * ly.ld + c8, v + base + r * ly.E + c8);
     }
-    float* op = out + base + i * E + c0;
+    etch_cp_async_commit();
+    // padded keys are masked to -inf, but their v rows meet a = 0 and must
+    // be finite
+    const int half = ly.ep / 2;
+    for (int e = tid; e < (kRows - ly.L) * half; e += 128) {
+      const int r = ly.L + e / half, c2 = 2 * (e % half);
+      *reinterpret_cast<uint32_t*>(ks + r * ly.ld + c2) = 0u;
+      *reinterpret_cast<uint32_t*>(vs + r * ly.ld + c2) = 0u;
+    }
+    etch_cp_async_wait<0>();
+  } else {
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int e = tid; e < kRows * ly.ep; e += 128) {
+      const int r = e / ly.ep, col = e % ly.ep, h = col / ly.hp, d = col % ly.hp;
+      const bool in = r < ly.L && h < ly.H && d < ly.hs;
+      const size_t src = base + r * ly.E + h * ly.hs + d;
+      ks[r * ly.ld + col] = in ? k[src] : zero;
+      vs[r * ly.ld + col] = in ? v[src] : zero;
+    }
+  }
+  etch_group_sync(group);   // k and v of all 64 rows are in place
+
+  const bf16* qp = q + base;
+  const int r0 = 16 * warp, g = lane >> 2, t2 = 2 * (lane & 3);
+  if constexpr (HT <= 8) {
+    constexpr int kHeadsPerTile = 8 / HT;
+    for (int nt = 0; nt < ly.ep / 8; ++nt) {   // 8-column tile of q, k, v, o
+      uint32_t kb[2][4], vb[2][4];   // keys 0-31 and 32-63
 #pragma unroll
-    for (int d = 0; d < HS; ++d)
-      if (d < hs) op[d] = o[d];
+      for (int u = 0; u < 2; ++u) {
+        etch_ldsm_x4(kb[u], ks + (32 * u + lane) * ly.ld + 8 * nt);
+        etch_ldsm_x4_trans(vb[u], vs + (32 * u + lane) * ly.ld + 8 * nt);
+      }
+      const uint32_t qa0 = q_pair(qp, ly, r0 + g, 8 * nt + t2);
+      const uint32_t qa1 = q_pair(qp, ly, r0 + g + 8, 8 * nt + t2);
+      float ot[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int hh = 0; hh < kHeadsPerTile; ++hh) {
+        // q restricted to this head's columns of the tile
+        const bool own0 = t2 / HT == hh, own1 = (t2 + 1) / HT == hh;
+        const uint32_t mask = (own0 ? 0x0000ffffu : 0u) | (own1 ? 0xffff0000u : 0u);
+        float s[8][4];
+#pragma unroll
+        for (int jt = 0; jt < 8; ++jt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[jt][e] = 0.f;
+          etch_mma_1688(s[jt], qa0 & mask, qa1 & mask, kb[jt >> 2][jt & 3]);
+        }
+        uint32_t p[4][4];
+        etch_softmax_frags(s, ly.L, p);
+        float oh[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          etch_mma_16816(oh, p[t], vb[t >> 1][2 * (t & 1)], vb[t >> 1][2 * (t & 1) + 1]);
+        if (own0) {
+          ot[0] = oh[0];
+          ot[2] = oh[2];
+        }
+        if (own1) {
+          ot[1] = oh[1];
+          ot[3] = oh[3];
+        }
+      }
+      stage(st, ly.ldo, 8 * nt, ot);
+    }
+  } else {
+    for (int h = 0; h < ly.H; ++h) {
+      const int c0 = h * ly.hp;
+      float s[8][4];
+#pragma unroll
+      for (int jt = 0; jt < 8; ++jt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[jt][e] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < HT / 16; ++kt) {   // 16 columns of the head at a time
+        if (16 * kt < ly.hp) {
+          const int c = c0 + 16 * kt + t2;
+          const uint32_t qa[4] = {q_pair(qp, ly, r0 + g, c), q_pair(qp, ly, r0 + g + 8, c),
+                                  q_pair(qp, ly, r0 + g, c + 8),
+                                  q_pair(qp, ly, r0 + g + 8, c + 8)};
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {   // keys 16 jj .. 16 jj + 15
+            uint32_t kb[4];
+            etch_ldsm_x4(kb, ks + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * ly.ld + c0 +
+                                 16 * kt + ((lane >> 3) & 1) * 8);
+            etch_mma_16816(s[2 * jj], qa, kb[0], kb[1]);
+            etch_mma_16816(s[2 * jj + 1], qa, kb[2], kb[3]);
+          }
+        }
+      }
+      uint32_t p[4][4];
+      etch_softmax_frags(s, ly.L, p);
+#pragma unroll
+      for (int j2 = 0; j2 < HT / 16; ++j2) {   // 16 output columns at a time
+        if (16 * j2 < ly.hp) {
+          float o0[4] = {0.f, 0.f, 0.f, 0.f}, o1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            uint32_t vb[4];
+            etch_ldsm_x4_trans(vb, vs + (16 * t + (lane & 15)) * ly.ld + c0 + 16 * j2 +
+                                       (lane >> 4) * 8);
+            etch_mma_16816(o0, p[t], vb[0], vb[1]);
+            etch_mma_16816(o1, p[t], vb[2], vb[3]);
+          }
+          stage(st, ly.ldo, c0 + 16 * j2, o0);
+          stage(st, ly.ldo, c0 + 16 * j2 + 8, o1);
+        }
+      }
+    }
+  }
+  __syncwarp();
+
+  // the warp's rows r0 .. r0 + 15 that exist, from the staging rows
+  const int rows = min(16, ly.L - r0);
+  float* op = out + base + static_cast<size_t>(r0) * ly.E;
+  if (ly.direct) {
+    const int nq = ly.E / 4;
+    for (int e = lane; e < rows * nq; e += 32) {
+      const int r = e / nq, c4 = 4 * (e % nq);
+      __stcs(reinterpret_cast<float4*>(op + r * ly.E + c4),
+             *reinterpret_cast<const float4*>(st + r * ly.ldo + c4));
+    }
+  } else {
+    for (int e = lane; e < rows * ly.E; e += 32) {
+      const int r = e / ly.E, col = e % ly.E;
+      op[r * ly.E + col] = st[r * ly.ldo + (col / ly.hs) * ly.hp + col % ly.hs];
+    }
   }
 }
 
-template <int HS, bool EXACT>
-int launch(const bf16* q, const bf16* k, const bf16* v, float* out, int M, int L, int E,
-           int H, cudaStream_t stream) {
-  const size_t smem = 2 * static_cast<size_t>(L) * E * sizeof(float);
-  cudaError_t err = etch_allow_smem(attention_kernel<HS, EXACT>, smem);
+template <int HT>
+int launch(const bf16* q, const bf16* k, const bf16* v, float* out, int M, const Layout& ly,
+           cudaStream_t stream) {
+  const size_t smem = kGroups * (2 * static_cast<size_t>(kRows) * ly.ld * sizeof(bf16) +
+                                 4 * 16 * static_cast<size_t>(ly.ldo) * sizeof(float));
+  cudaError_t err = etch_allow_smem(attention_kernel<HT>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int want = (L * H + 31) / 32 * 32;
-  const int threads = want < 1024 ? want : 1024;
-  attention_kernel<HS, EXACT><<<M, threads, smem, stream>>>(q, k, v, out, L, E, H);
+  attention_kernel<HT><<<(M + kGroups - 1) / kGroups, kThreads, smem, stream>>>(q, k, v, out, M,
+                                                                                 ly);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v (M, L, E) bf16 -> out (M, L, E) f32.  E <= 128 and H divides E; a
-// power-of-two head size is compiled exactly, any other is bounded by the
-// next power of two.
+// q, k, v (M, L, E) bf16 -> out (M, L, E) f32.  L <= 64, E <= 128 and H
+// divides E.
 ETCH_API int etch_attention(const void* q, const void* k, const void* v, float* out, int M,
                             int L, int E, int H, cudaStream_t stream) {
+  if (L < 1 || L > kRows || H < 1 || E % H != 0 || E > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Layout ly;
+  ly.L = L;
+  ly.E = E;
+  ly.H = H;
+  ly.hs = E / H;
+  const int hs = ly.hs;
+  int ht;
+  if (hs == 1 || hs == 2 || hs == 4) {   // several heads an 8-column tile
+    ht = ly.hp = hs;
+    ly.ep = round_up(E, 8);
+  } else if (hs <= 8) {                  // one head an 8-column tile
+    ht = ly.hp = 8;
+    ly.ep = 8 * H;
+  } else {                               // k16 steps
+    ly.hp = round_up(hs, 16);
+    ht = ly.hp <= 16 ? 16 : ly.hp <= 32 ? 32 : ly.hp <= 64 ? 64 : 128;
+    ly.ep = H * ly.hp;
+  }
+  ly.direct = ly.hp == hs && E % 8 == 0;
+  ly.ld = round_up(ly.ep, 16) + 8;
+  ly.ldo = round_up(ly.ep, 32) + 8;
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
-  if (H < 1 || E % H != 0 || E > 128) return static_cast<int>(cudaErrorInvalidValue);
-  switch (E / H) {
-    case 1: return launch<1, true>(qb, kb, vb, out, M, L, E, H, stream);
-    case 2: return launch<2, true>(qb, kb, vb, out, M, L, E, H, stream);
-    case 4: return launch<4, true>(qb, kb, vb, out, M, L, E, H, stream);
-    case 8: return launch<8, true>(qb, kb, vb, out, M, L, E, H, stream);
-    case 16: return launch<16, true>(qb, kb, vb, out, M, L, E, H, stream);
-    case 32: return launch<32, true>(qb, kb, vb, out, M, L, E, H, stream);
-    case 64: return launch<64, true>(qb, kb, vb, out, M, L, E, H, stream);
-    case 128: return launch<128, true>(qb, kb, vb, out, M, L, E, H, stream);
-    default: break;
+  switch (ht) {
+    case 1: return launch<1>(qb, kb, vb, out, M, ly, stream);
+    case 2: return launch<2>(qb, kb, vb, out, M, ly, stream);
+    case 4: return launch<4>(qb, kb, vb, out, M, ly, stream);
+    case 8: return launch<8>(qb, kb, vb, out, M, ly, stream);
+    case 16: return launch<16>(qb, kb, vb, out, M, ly, stream);
+    case 32: return launch<32>(qb, kb, vb, out, M, ly, stream);
+    case 64: return launch<64>(qb, kb, vb, out, M, ly, stream);
+    default: return launch<128>(qb, kb, vb, out, M, ly, stream);
   }
-  const int hs = E / H;
-  if (hs < 4) return launch<4, false>(qb, kb, vb, out, M, L, E, H, stream);
-  if (hs < 8) return launch<8, false>(qb, kb, vb, out, M, L, E, H, stream);
-  if (hs < 16) return launch<16, false>(qb, kb, vb, out, M, L, E, H, stream);
-  if (hs < 32) return launch<32, false>(qb, kb, vb, out, M, L, E, H, stream);
-  if (hs < 64) return launch<64, false>(qb, kb, vb, out, M, L, E, H, stream);
-  return launch<128, false>(qb, kb, vb, out, M, L, E, H, stream);
 }

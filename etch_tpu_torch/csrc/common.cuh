@@ -93,6 +93,98 @@ __device__ __forceinline__ void etch_mma_1688(float (&d)[4], uint32_t a0, uint32
       : "r"(a0), "r"(a1), "r"(b));
 }
 
+// f32 -> tf32 (round to nearest, ties away; the low 13 bits of the result
+// are zero), and the split x = hi + lo that 3xTF32 products use: both halves
+// are tf32 values, and hi + lo is x to within 2^-21 relative.
+__device__ __forceinline__ uint32_t etch_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void etch_split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = etch_tf32(x);
+  lo = etch_tf32(x - __uint_as_float(hi));
+}
+
+// d += a b, m16n8k8, tf32 operands, f32 accumulators (g = lane / 4, t =
+// lane % 4): a[0] row g, k t; a[1] row g + 8, k t; a[2], a[3] the same at
+// k t + 4; b0 k t of column g, b1 k t + 4; d as for the bf16 products.
+__device__ __forceinline__ void etch_mma_1688_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                                   uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit (relative error about 2^-22; -inf -> 0).
+__device__ __forceinline__ float etch_ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Barrier of the 128 threads of one 4-warp group (named barrier group + 1;
+// 0 is __syncthreads').
+__device__ __forceinline__ void etch_group_sync(int group) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(group + 1) : "memory");
+}
+
+// Row softmax of the logits S of a warp's 16 query rows (rows g and g + 8,
+// 64 keys as 8 n8 accumulator tiles) in place, keys >= L masked to -inf;
+// returns a = bf16(exp(z - m) * (1 / den)) as the four m16 x k16 A fragments
+// of the product a v.  The max and the sum run over the 4 lanes of a row.
+// exp(z - m) is 2^(z log2(e) - m log2(e)): one FMA and one ex2.approx
+// (relative error about 2^-22, where expf takes some ten instructions for
+// 2^-23); the bf16 rounding of a absorbs the difference but for a value at a
+// rounding boundary, as it absorbs the summation order.
+__device__ __forceinline__ void etch_softmax_frags(float (&s)[8][4], int L,
+                                                   uint32_t (&p)[4][4]) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int t2 = 2 * (threadIdx.x & 3);
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int jt = 0; jt < 8; ++jt) {
+    if (8 * jt + 8 > L) {   // the tile holds padded keys
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * jt + t2 + (e & 1) >= L) s[jt][e] = -INFINITY;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[jt][e]);
+  }
+  float den[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+  }
+  const float ml[2] = {m[0] * kLog2e, m[1] * kLog2e};
+#pragma unroll
+  for (int jt = 0; jt < 8; ++jt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[jt][e] = etch_ex2(fmaf(s[jt][e], kLog2e, -ml[e >> 1]));   // exp(z - m)
+      den[e >> 1] += s[jt][e];
+    }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    den[h] += __shfl_xor_sync(0xffffffffu, den[h], 1);
+    den[h] += __shfl_xor_sync(0xffffffffu, den[h], 2);
+    inv[h] = 1.f / den[h];
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        p[t][2 * j + h] = etch_pack_bf16(s[2 * t + j][2 * h] * inv[h],
+                                         s[2 * t + j][2 * h + 1] * inv[h]);
+}
+
 // Raises a kernel's dynamic shared-memory limit above the 48 KB default.
 template <typename Kernel>
 static inline cudaError_t etch_allow_smem(Kernel kernel, size_t bytes) {

@@ -128,65 +128,6 @@ __device__ __forceinline__ void load_tokens(Frag (&x)[4], const bf16* __restrict
       }
 }
 
-// 2^x on the special-function unit (relative error about 2^-22; -inf -> 0).
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void group_sync(int group) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(group + 1) : "memory");
-}
-
-// Row softmax of S (rows g and g + 8 of the warp's 16 queries, 64 keys as 8
-// n8 tiles) in place, keys >= A masked; returns bf16(a) as the A fragments
-// of a (16 x 64) times v.
-__device__ __forceinline__ void softmax_frags(float (&s)[8][4], int A, Frag (&p)[4]) {
-  constexpr float kLog2e = 1.4426950408889634f;
-  const int t2 = 2 * (threadIdx.x & 3);
-  float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int jt = 0; jt < 8; ++jt) {
-    if (8 * jt + 8 > A) {   // the tile holds padded keys
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (8 * jt + t2 + (e & 1) >= A) s[jt][e] = -INFINITY;
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[jt][e]);
-  }
-  float den[2] = {0.f, 0.f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
-    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
-  }
-  const float ml[2] = {m[0] * kLog2e, m[1] * kLog2e};
-#pragma unroll
-  for (int jt = 0; jt < 8; ++jt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[jt][e] = ex2_approx(fmaf(s[jt][e], kLog2e, -ml[e >> 1]));   // exp(z - m)
-      den[e >> 1] += s[jt][e];
-    }
-  float inv[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    den[h] += __shfl_xor_sync(0xffffffffu, den[h], 1);
-    den[h] += __shfl_xor_sync(0xffffffffu, den[h], 2);
-    inv[h] = 1.f / den[h];
-  }
-#pragma unroll
-  for (int t = 0; t < 4; ++t)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        p[t][2 * j + h] = etch_pack_bf16(s[2 * t + j][2 * h] * inv[h],
-                                         s[2 * t + j][2 * h + 1] * inv[h]);
-}
-
 // Multi-head attention of the warp's 16 query rows: q (A fragments, 4
 // k16 tiles = 64 columns), k and v (64 x kLdE bf16, shared) -> o, bf16 A
 // fragments.  Column tiles at or beyond E are zero.
@@ -213,7 +154,7 @@ __device__ __forceinline__ void attention(const Frag (&q)[4], const bf16* ks, co
           }
         }
         Frag p[4];
-        softmax_frags(s, A, p);
+        etch_softmax_frags(s, A, p);
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
           uint32_t vb[4];
@@ -254,7 +195,7 @@ __device__ __forceinline__ void attention(const Frag (&q)[4], const bf16* ks, co
             etch_mma_1688(s[jt], qa0 & mask, qa1 & mask, kb[jt >> 2][jt & 3]);
           }
           Frag p[4];
-          softmax_frags(s, A, p);
+          etch_softmax_frags(s, A, p);
           float oh[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
           for (int t = 0; t < 4; ++t)
@@ -291,7 +232,7 @@ __device__ __forceinline__ void self_attention(const Frag (&x)[4], const bf16* w
       return etch_pack_bf16(acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
     });
   }
-  group_sync(group);  // the group is done reading the previous k and v
+  etch_group_sync(group);  // the group is done reading the previous k and v
   const int t2 = 2 * (threadIdx.x & 3);
 #pragma unroll
   for (int m = 0; m < 2; ++m)
@@ -306,7 +247,7 @@ __device__ __forceinline__ void self_attention(const Frag (&x)[4], const bf16* w
           *reinterpret_cast<uint32_t*>(dst + (r0 + g + 8 * h) * kLdE + 16 * t + 8 * j + t2) =
               etch_pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
     }
-  group_sync(group);  // k and v of all 64 rows are in place
+  etch_group_sync(group);  // k and v of all 64 rows are in place
   attention<HS>(q, ks, vs, A, E, o);
 }
 

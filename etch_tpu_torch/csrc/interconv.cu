@@ -1,7 +1,7 @@
 // Inter-SO(3)-conv contraction, with both neighbour gathers fused in.
 //
 // Replaces etch_tpu/nn/pallas_interconv.py:interconv_t_pallas, bodies _kernel
-// (C >= 8 feature contraction, f32 or bf16 features), _kernel_ones (all-ones
+// (the feature contraction on f32 or bf16 rows), _kernel_ones (all-ones
 // occupancy input), _kernel_ones_proj (occupancy input with the (K -> Co)
 // projection fused in, bf16 serving path) and _kernel_c1 (1-channel feature
 // rows that are not the occupancy input).  For a center p with neighbours
@@ -66,15 +66,45 @@
 // 75 KB for C = 64 (3 blocks, 12 warps).  Left for later: fusing the
 // (K*C -> Co) projection so that t never reaches device memory.
 //
-// f32 rows (interconv_kernel).  Bound: FP32 FMA issue and shared-memory
-// bandwidth (no tensor cores: the f32 path keeps full precision).  Per center
-// the contraction is nn*A*K*C FMAs (2.9 M at nn=64, C=32) against nn*A*C*4
-// bytes of gathered features, about 12 FMAs a byte.  Design: anchors are
-// processed in groups of G, sized so the w tile (nn x G*K) and the feature
-// tile (nn x G*C) fit in shared memory (a whole (64, 1440) f32 w block is
-// 368 KB and does not); each thread accumulates a TK x TC = 3 x 4 register
-// micro-tile of (k, c) outputs, so seven shared-memory reads feed twelve
-// FMAs.
+// f32 rows (interconv_tf32_kernel).  Bound on the H100: the bytes again.  A
+// 512-center chunk at B=8 writes 755 MB of f32 t at C=32 (1.51 GB at C=64)
+// and reads 154 MB of rows: 0.271 ms (0.497) at 3.35 TB/s, against 72.5
+// GFLOP (145) of f32-accurate products counted as three TF32 passes, 0.147
+// ms (0.293) at 495 TFLOP/s.  The TPU kernel keeps f32 accuracy on its
+// matrix unit with Precision.HIGHEST, a multi-pass bf16 product; here the
+// per-anchor GEMM runs as 3xTF32 mma.sync m16n8k8: both operands are split
+// once, x = hi + lo with hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and t
+// accumulates w_lo f_hi + w_hi f_lo + w_hi f_hi in f32; only w_lo f_lo,
+// about 2^-22 of a product, is dropped.  The block, warp and weight scheme
+// is the bf16 body's (4 warps a center, anchors warp, warp + 4, ...; each
+// lane forms exactly the weights of its own fragments, Markstein's quotient,
+// padded points at 1e3), with three differences, each measured on the card:
+//   - The orientation is M = C (m16 tiles of channels), N = K (kernel points
+//     in blocks of 24 = three n8 tiles; K = 30 or 66 runs more blocks), depth
+//     nn in k8 steps.  Unlike the bf16 body it pads nothing at K = 24 and
+//     C = 32 or 64 (six m16n8k8 tiles a k step at C = 32, not eight), and a
+//     lane's A-fragment rows g, g + 8 of every m-tile are mapped to the
+//     channels 2 MT g .. 2 MT g + 2 MT - 1, so one 16-byte shared load fetches
+//     them; the weights are the B fragments (kernel points 8j + g,
+//     neighbours t, t + 4).  The price is t transposed in the accumulators,
+//     which the staging store turns back (it staged anyway).  C = 4 to 12
+//     pad one m16 tile with channels that are never stored.
+//   - Shared memory: a whole (64, C + 8) f32 tile is twice the bf16 one, and
+//     two per warp would leave 2 blocks (8 warps) an SM at C = 32 and one at
+//     C = 64.  So each warp gathers in chunks of 32 neighbours through a ring
+//     of two 32-row tiles: chunk i + 1 arrives by 16-byte cp.async while
+//     chunk i computes, and the tile of a block's last chunk stages its
+//     (24, C) output for 16-byte streaming stores.  Rows are 16 MT + 8 words
+//     (8 or 24 mod 32), so the fragment loads are free of bank conflicts.
+//     Per block 20 nn_pad bytes of offsets and indices plus 4 x 2 x 32 x
+//     (16 MT + 8) f32: 42.2 KB at C = 32 (5 blocks, 20 warps an SM) and 75
+//     KB at C = 64 (3 blocks, 12 warps), as in the bf16 body.
+//   - The products are issued pass by pass (all lo hi, then hi lo, then hi
+//     hi), so consecutive mma.sync update different accumulators; the k
+//     steps of a chunk are unrolled, and no loop divides by a runtime width.
+// Of its parts the weight evaluation costs the most; the products, the
+// gather and the stores each cost less, and no one unit holds the kernel:
+// the FP32 weights and the latency of its dependent chains do.
 //
 // The fused occupancy projection is bound by the weight evaluation, as the
 // plain occupancy kernel is (nn*A*K = 92 K weights per center); its
@@ -92,10 +122,10 @@
 
 namespace {
 
-constexpr int kTK = 3;  // kernel points per thread micro-tile (f32 body)
-constexpr int kTC = 4;  // channels per thread micro-tile (f32 body)
-constexpr int kMmaWarps = 4;  // warps per block of the bf16 body
+constexpr int kMmaWarps = 4;  // warps per block of the bf16 and f32 bodies
 constexpr int kKp = 32;       // kernel points padded to two m16 tiles
+constexpr int kChunk = 32;    // neighbours per gathered tile of the f32 body
+constexpr int kKb = 24;       // kernel points per block of the f32 body: 3 n8 tiles
 constexpr float kFar = 1e3f;  // a coordinate no kernel point reaches: w = 0
 
 __device__ __forceinline__ void load_offsets(const float* __restrict__ xyz,
@@ -116,75 +146,6 @@ __device__ __forceinline__ float kernel_weight(const float* g, const float* r, f
   return fmaxf(1.f - (dx * dx + dy * dy + dz * dz) / sigma, 0.f);
 }
 
-// grid (c, B); block G * (K / kTK) * (C / kTC) threads.  f32 rows.
-__global__ void interconv_kernel(const float* __restrict__ xyz,      // (B, P, 3)
-                                 const float* __restrict__ centers,  // (B, c, 3)
-                                 const int32_t* __restrict__ nbr,    // (B, c, nn)
-                                 const float* __restrict__ feats,    // (B, P, A*C)
-                                 const float* __restrict__ rk,       // (A*K, 3)
-                                 float* __restrict__ out,            // (B, c, A, K, C)
-                                 int P, int c, int nn, int A, int K, int C, int G,
-                                 float sigma) {
-  extern __shared__ float smem[];
-  float* gx = smem;                       // nn * 3
-  float* ws = gx + nn * 3;                // nn * G*K
-  float* fs = ws + nn * G * K;            // nn * G*C
-  int* sidx = reinterpret_cast<int*>(fs + nn * G * C);  // nn
-
-  const int p = blockIdx.x, b = blockIdx.y;
-  const size_t bp = static_cast<size_t>(b) * c + p;
-  load_offsets(xyz + static_cast<size_t>(b) * P * 3, centers + bp * 3, nbr + bp * nn, nn,
-               gx, sidx);
-
-  const int ct_n = C / kTC;
-  const int per_anchor = (K / kTK) * ct_n;
-  const int g = threadIdx.x / per_anchor;
-  const int r = threadIdx.x % per_anchor;
-  const int k0 = (r / ct_n) * kTK;
-  const int c0 = (r % ct_n) * kTC;
-  const int GK = G * K, GC = G * C;
-  const size_t AC = static_cast<size_t>(A) * C;
-  const float* fb = feats + static_cast<size_t>(b) * P * AC;
-  float* ob = out + bp * static_cast<size_t>(A) * K * C;
-
-  for (int a0 = 0; a0 < A; a0 += G) {
-    __syncthreads();  // offsets ready / previous group's tiles consumed
-    for (int e = threadIdx.x; e < nn * GK; e += blockDim.x) {
-      const int n = e / GK, gk = e % GK;
-      ws[e] = kernel_weight(gx + 3 * n, rk + 3 * (static_cast<size_t>(a0) * K + gk), sigma);
-    }
-    for (int e = threadIdx.x; e < nn * GC; e += blockDim.x) {
-      const int n = e / GC, col = e % GC;
-      fs[e] = fb[static_cast<size_t>(sidx[n]) * AC + static_cast<size_t>(a0) * C + col];
-    }
-    __syncthreads();
-
-    float acc[kTK][kTC];
-#pragma unroll
-    for (int i = 0; i < kTK; ++i)
-#pragma unroll
-      for (int j = 0; j < kTC; ++j) acc[i][j] = 0.f;
-    const float* wr = ws + g * K + k0;
-    const float* fr = fs + g * C + c0;
-    for (int n = 0; n < nn; ++n) {
-      float wv[kTK], fv[kTC];
-#pragma unroll
-      for (int i = 0; i < kTK; ++i) wv[i] = wr[n * GK + i];
-#pragma unroll
-      for (int j = 0; j < kTC; ++j) fv[j] = fr[n * GC + j];
-#pragma unroll
-      for (int i = 0; i < kTK; ++i)
-#pragma unroll
-        for (int j = 0; j < kTC; ++j) acc[i][j] = fmaf(wv[i], fv[j], acc[i][j]);
-    }
-    float* op = ob + (static_cast<size_t>(a0 + g) * K + k0) * C + c0;
-#pragma unroll
-    for (int i = 0; i < kTK; ++i)
-#pragma unroll
-      for (int j = 0; j < kTC; ++j) op[i * C + j] = acc[i][j];
-  }
-}
-
 // Shared memory of the bf16 body: neighbour offsets (float4) and indices,
 // then per warp two (rows, C + 8) bf16 feature tiles, rows = max(nn_pad, K)
 // (rows padded by 8 elements; a spent tile stages the (K, C) output).
@@ -199,7 +160,7 @@ __device__ __forceinline__ float mma_weight(float4 o, const float (&r)[3], float
   const float dx = o.x - r[0], dy = o.y - r[1], dz = o.z - r[2];
   const float d2 = dx * dx + dy * dy + dz * dz;
   const float q1 = d2 * rs;
-  return fmaxf(1.f - fmaf(fmaf(-q1, sigma, d2), rs, q1), 0.f);
+  return __saturatef(1.f - fmaf(fmaf(-q1, sigma, d2), rs, q1));   // q >= 0: 1 - q <= 1
 }
 
 // grid (c, B); block kMmaWarps * 32.  bf16 rows, C = 8 * NT, K <= kKp.
@@ -331,6 +292,200 @@ interconv_mma_kernel(const float* __restrict__ xyz,      // (B, P, 3)
   }
 }
 
+// Row stride (f32 words) of the f32 body's tiles, 16 MT channels: 8 or 24
+// mod 32.
+__host__ __device__ constexpr int tf32_ld(int mt) { return 16 * mt + 8; }
+
+// Four or two consecutive f32 from shared memory (16- or 8-byte aligned).
+template <int N>
+__device__ __forceinline__ void lds_vec(float* v, const float* p) {
+#pragma unroll
+  for (int i = 0; i < N; i += (N % 4 == 0 ? 4 : 2)) {
+    if constexpr (N % 4 == 0) {
+      const float4 x = *reinterpret_cast<const float4*>(p + i);
+      v[i] = x.x, v[i + 1] = x.y, v[i + 2] = x.z, v[i + 3] = x.w;
+    } else {
+      const float2 x = *reinterpret_cast<const float2*>(p + i);
+      v[i] = x.x, v[i + 1] = x.y;
+    }
+  }
+}
+template <int N>
+__device__ __forceinline__ void sts_vec(float* p, const float* v) {
+#pragma unroll
+  for (int i = 0; i < N; i += (N % 4 == 0 ? 4 : 2)) {
+    if constexpr (N % 4 == 0)
+      *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+    else
+      *reinterpret_cast<float2*>(p + i) = make_float2(v[i], v[i + 1]);
+  }
+}
+
+// grid (c, B); block kMmaWarps * 32.  f32 rows, C % 4 == 0, C <= 16 * MT.
+template <int MT>
+__global__ void __launch_bounds__(kMmaWarps * 32, MT <= 2 ? 5 : 3)
+interconv_tf32_kernel(const float* __restrict__ xyz,      // (B, P, 3)
+                      const float* __restrict__ centers,  // (B, c, 3)
+                      const int32_t* __restrict__ nbr,    // (B, c, nn)
+                      const float* __restrict__ feats,    // (B, P, A*C)
+                      const float* __restrict__ rk,       // (A*K, 3)
+                      float* __restrict__ out,            // (B, c, A, K, C)
+                      int P, int c, int nn, int A, int K, int C, float sigma) {
+  constexpr int kLd = tf32_ld(MT);
+  constexpr int kTile = kChunk * kLd;
+  const int nc = (nn + kChunk - 1) / kChunk;   // neighbour chunks
+  const int np = nc * kChunk;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* gx = reinterpret_cast<float4*>(smem_raw);    // np
+  int* sidx = reinterpret_cast<int*>(gx + np);         // np
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* ring = reinterpret_cast<float*>(sidx + np) + warp * 2 * kTile;
+
+  const int p = blockIdx.x, b = blockIdx.y;
+  const size_t bp = static_cast<size_t>(b) * c + p;
+  const float* xb = xyz + static_cast<size_t>(b) * P * 3;
+  const float* ctr = centers + bp * 3;
+  // padded neighbours sit at kFar, padded kernel points at -kFar: their
+  // weights come out exactly 0 with no test in the weight loop
+  for (int n = threadIdx.x; n < np; n += blockDim.x) {
+    if (n < nn) {
+      const int j = nbr[bp * nn + n];
+      sidx[n] = j;
+      gx[n] = make_float4(xb[3 * j] - ctr[0], xb[3 * j + 1] - ctr[1], xb[3 * j + 2] - ctr[2], 0.f);
+    } else {
+      gx[n] = make_float4(kFar, kFar, kFar, 0.f);
+    }
+  }
+  // the ring starts at zero: rows past nn and channels past C are never
+  // gathered and need finite values (w = 0, or outputs never stored)
+  for (int e = lane; e < 2 * kTile / 4; e += 32)
+    reinterpret_cast<float4*>(ring)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();  // offsets and indices ready; from here each warp is on its own
+
+  const size_t AC = static_cast<size_t>(A) * C;
+  const float* fb = feats + static_cast<size_t>(b) * P * AC;
+  // 16-byte pieces: a lane copies piece pq of rows pr, pr + kRowsPer, ...
+  // (compile-time divisors; pieces past C / 4 are skipped)
+  constexpr int kPieces = 4 * MT, kRowsPer = 32 / kPieces;
+  const int nq = C / 4, pr = lane / kPieces, pq = lane % kPieces;
+  const bool copies = pr < kRowsPer && pq < nq;
+  auto gather = [&](int a, int n0, float* dst) {
+    const int rows = min(kChunk, nn - n0);
+    const float* src = fb + static_cast<size_t>(a) * C + 4 * pq;
+    if (copies)
+      for (int r = pr; r < rows; r += kRowsPer)
+        etch_cp_async16(dst + r * kLd + 4 * pq, src + static_cast<size_t>(sidx[n0 + r]) * AC);
+  };
+  const int g = lane >> 2, t = lane & 3;   // fragment row and column
+  const float rs = 1.f / sigma;
+
+  // a warp's steps: anchors warp, warp + 4, ...; per anchor the kernel-point
+  // blocks k0 = 0, kKb, ...; per block the neighbour chunks n0 = 0, kChunk, ...
+  int a = warp, k0 = 0, n0 = 0;
+  if (a < A) gather(a, n0, ring);
+  etch_cp_async_commit();
+  float r[3][3];
+  float acc[MT][3][4];
+  for (int s = 0; a < A; ++s) {
+    const int kn = min(kKb, K - k0);   // kernel points of this block
+    int a1 = a, k1 = k0, n1 = n0 + kChunk;   // the next step
+    if (n1 >= nn) {
+      n1 = 0;
+      k1 += kKb;
+      if (k1 >= K) k1 = 0, a1 += kMmaWarps;
+    }
+    if (n0 == 0) {
+      // this lane's B-fragment columns are kernel points k0 + 8j + g
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int k = 8 * j + g;
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          r[j][d] = k < kn ? __ldg(rk + (static_cast<size_t>(a) * K + k0 + k) * 3 + d) : -kFar;
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+    }
+    // the next chunk into the other tile, then wait for this one
+    if (a1 < A) gather(a1, n1, ring + ((s + 1) & 1) * kTile);
+    etch_cp_async_commit();
+    etch_cp_async_wait<1>();
+    __syncwarp();
+
+    float* cur = ring + (s & 1) * kTile;
+    const int ksteps = min(kChunk, nn - n0 + 7) / 8;
+#pragma unroll
+    for (int ks = 0; ks < kChunk / 8; ++ks) {
+      if (ks >= ksteps) break;
+      // w for kernel points 8j + g and neighbours n0 + 8 ks + t + {0, 4},
+      // split into the hi and lo B fragments
+      uint32_t bh[3][2], bl[3][2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float4 o = gx[n0 + 8 * ks + t + 4 * u];
+#pragma unroll
+        for (int j = 0; j < 3; ++j)   // 8j < kn is the same for every lane
+          etch_split_tf32(8 * j < kn ? mma_weight(o, r[j], sigma, rs) : 0.f, bh[j][u], bl[j][u]);
+      }
+      // features of neighbours 8 ks + t + {0, 4}, channels 2 MT g .. + 2 MT:
+      // A-fragment rows g, g + 8 of m-tile m are channels 2 MT g + 2m + {0, 1}
+      float f[2][2 * MT];
+      lds_vec<2 * MT>(f[0], cur + (8 * ks + t) * kLd + 2 * MT * g);
+      lds_vec<2 * MT>(f[1], cur + (8 * ks + t + 4) * kLd + 2 * MT * g);
+      uint32_t ah[MT][4], al[MT][4];   // slot h + 2u: channel row h, neighbour t + 4u
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            etch_split_tf32(f[u][2 * m + h], ah[m][h + 2 * u], al[m][h + 2 * u]);
+      // pass by pass (lo hi, hi lo, hi hi), so that consecutive products
+      // update different accumulators
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            if (8 * j < kn)
+              etch_mma_1688_tf32(acc[m][j], pass == 0 ? al[m] : ah[m],
+                                 pass == 1 ? bl[j][0] : bh[j][0],
+                                 pass == 1 ? bl[j][1] : bh[j][1]);
+    }
+    __syncwarp();  // every lane has read the tile: the gather after next may take it
+    if (n1 == 0) {   // the anchor's block is done: stage it in the spent tile
+      // acc[m][j] holds channels 2 MT g + 2m + {0, 1} (slots {0, 2} and
+      // {1, 3}) of kernel points 8j + 2t + {0, 1}
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = 8 * j + 2 * t + e;
+          if (k < kn) {
+            float v[2 * MT];
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+              v[2 * m] = acc[m][j][e], v[2 * m + 1] = acc[m][j][e + 2];
+            sts_vec<2 * MT>(cur + k * kLd + 2 * MT * g, v);
+          }
+        }
+      __syncwarp();
+      const size_t row0 = (bp * A + a) * K + k0;
+      float4* op = reinterpret_cast<float4*>(out + row0 * C) + pq;
+      if (copies)
+        for (int k = pr; k < kn; k += kRowsPer)
+          __stcs(op + k * nq, *reinterpret_cast<const float4*>(cur + k * kLd + 4 * pq));
+      __syncwarp();  // staging read before the tile takes the gather after next
+    }
+    a = a1, k0 = k1, n0 = n1;
+  }
+}
+
 // grid (c, B); one thread per (a, k) output column, looping over neighbours.
 __global__ void interconv_ones_kernel(const float* __restrict__ xyz,      // (B, P, 3)
                                       const float* __restrict__ centers,  // (B, c, 3)
@@ -455,22 +610,38 @@ int launch_interconv_mma(const float* xyz, const float* centers, const int32_t* 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int MT>
+int launch_interconv_tf32(const float* xyz, const float* centers, const int32_t* nbr,
+                          const float* feats, const float* rk, float* out, int b, int P, int c,
+                          int nn, int A, int K, int C, float sigma, cudaStream_t stream) {
+  const int np = (nn + kChunk - 1) / kChunk * kChunk;
+  const size_t smem = static_cast<size_t>(np) * 20 +
+                      static_cast<size_t>(kMmaWarps) * 2 * kChunk * tf32_ld(MT) * sizeof(float);
+  cudaError_t err = etch_allow_smem(interconv_tf32_kernel<MT>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  interconv_tf32_kernel<MT><<<dim3(c, b), kMmaWarps * 32, smem, stream>>>(
+      xyz, centers, nbr, feats, rk, out, P, c, nn, A, K, C, sigma);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Contraction on f32 rows.  Requires K % 3 == 0, C % 4 == 0, A % G == 0; the
-// caller picks G and passes the block's thread count G * (K/3) * (C/4).
+// Contraction on f32 rows, on the tensor cores with f32 accuracy (3xTF32).
+// Requires C % 4 == 0 and 4 <= C <= 64; any K.
 ETCH_API int etch_interconv_t(const float* xyz, const float* centers, const int32_t* nbr,
                               const float* feats, const float* rk, float* out, int b, int P,
-                              int c, int nn, int A, int K, int C, int G, float sigma,
+                              int c, int nn, int A, int K, int C, float sigma,
                               cudaStream_t stream) {
-  const size_t smem =
-      (static_cast<size_t>(nn) * (3 + G * K + G * C) + nn) * sizeof(float);
-  cudaError_t err = etch_allow_smem(interconv_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = G * (K / kTK) * (C / kTC);
-  interconv_kernel<<<dim3(c, b), threads, smem, stream>>>(xyz, centers, nbr, feats, rk, out, P,
-                                                          c, nn, A, K, C, G, sigma);
-  return static_cast<int>(cudaGetLastError());
+  if (C % 4 != 0 || C < 4 || C > 64) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((C + 15) / 16) {
+#define ETCH_CASE(mt)                                                                        \
+  case mt:                                                                                   \
+    return launch_interconv_tf32<mt>(xyz, centers, nbr, feats, rk, out, b, P, c, nn, A, K, \
+                                     C, sigma, stream);
+    ETCH_CASE(1) ETCH_CASE(2) ETCH_CASE(3) ETCH_CASE(4)
+#undef ETCH_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The same contraction on bf16 feature rows, on the tensor cores: bf16 w

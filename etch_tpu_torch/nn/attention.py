@@ -31,7 +31,7 @@ from etch_tpu_torch import _build
 from etch_tpu_torch.nn.bf16 import BF16, rnd
 
 _MAX_E = 128    # widest embedding csrc/attention.cu takes
-_SMEM_BYTES = 227 * 1024   # k and v of one point, as f32, in shared memory
+_MAX_L = 64     # tokens a point: one 64-row tile of queries and keys
 
 
 def attention_torch(q, k, v, num_heads: int):
@@ -52,7 +52,11 @@ def attention_torch(q, k, v, num_heads: int):
 
 
 def attention_cuda(q, k, v, num_heads: int):
-    """The kernel: bf16 q, k, v (Bc, L, E) on the card -> (Bc, L, E) f32."""
+    """The kernel: bf16 q, k, v (Bc, L, E) on the card -> (Bc, L, E) f32.
+
+    One 64-row tile of queries and keys a point (4 warps, 16 query rows
+    each; keys L..63 masked), so L <= 64 (the direction head's 60 anchors);
+    a longer L raises.  Any head count that divides E <= 128."""
     device = _build.check_cuda("attention", (q, BF16), (k, BF16), (v, BF16))
     Bc, L, E = q.shape
     if k.shape != q.shape or v.shape != q.shape:
@@ -61,8 +65,10 @@ def attention_cuda(q, k, v, num_heads: int):
     if E > _MAX_E or num_heads < 1 or E % num_heads:
         raise ValueError(f"attention: needs E <= {_MAX_E} and a head count that "
                          f"divides E; got E={E}, {num_heads} heads")
-    if 8 * L * E > _SMEM_BYTES:
-        raise ValueError(f"attention: {L} tokens of width {E} do not fit shared memory")
+    if not 1 <= L <= _MAX_L:
+        raise ValueError(f"attention: needs 1 <= L <= {_MAX_L} tokens, got {L}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("attention: q, k and v must start on a 16-byte boundary")
     out = torch.empty((Bc, L, E), dtype=torch.float32, device=device)
     if Bc:
         _build.launch("attention", "etch_attention", device, _build.ptr(q), _build.ptr(k),

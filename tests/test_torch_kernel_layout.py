@@ -1,11 +1,15 @@
 """What the port's Python side hands its redesigned kernels, on the CPU.
 
 The tensor-core contraction (`csrc/interconv.cu`, bf16 rows) pads the kernel
-points to 32 rows and the neighbours to a multiple of 16; the direction core
-(`csrc/dircore.cu`) copies a packed, row-padded weight image into shared
-memory and runs head sizes below 8 as masked 8-column tiles.  These tests
-hold each of those choices to the plain versions' arithmetic, and hold the
-pipeline's entry point to the card by default.  No card is needed.
+points to 32 rows and the neighbours to a multiple of 16; on f32 rows it
+splits both operands into tf32 halves and sums three tf32 products
+(3xTF32).  The direction core (`csrc/dircore.cu`) copies a packed,
+row-padded weight image into shared memory and runs head sizes below 8 as
+masked 8-column tiles; the anchor attention (`csrc/attention.cu`) pads each
+head with zero columns and the keys to 64 rows at -inf.  These tests hold
+each of those choices to the plain versions' arithmetic (emulated in numpy),
+and hold the pipeline's entry point to the card by default.  No card is
+needed.
 """
 
 import inspect
@@ -16,11 +20,11 @@ import torch
 
 from etch_tpu_torch.geometry.icosahedral import get_anchors
 from etch_tpu_torch.geometry.kernel_points import get_kernel_points
-from etch_tpu_torch.nn import dircore, interconv
+from etch_tpu_torch.nn import attention, dircore, interconv
 from etch_tpu_torch.nn.bf16 import rnd
 from etch_tpu_torch.ops.ball_query import ball_query_torch
 from etch_tpu_torch.pipeline import build_pipeline
-from etch_tpu_torch.utils.config import EtchConfig
+from etch_tpu_torch.utils.config import EtchConfig, backbone_plan
 
 
 def test_build_pipeline_defaults_to_the_card():
@@ -140,3 +144,126 @@ def test_markstein_quotient_is_the_ieee_quotient(sigma):
     r = (d2.astype(np.float64) - q1.astype(np.float64) * np.float64(s)).astype(np.float32)
     q = (q1.astype(np.float64) + r.astype(np.float64) * np.float64(rs)).astype(np.float32)
     assert np.array_equal(q, d2 / s)
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: x rounded to 10 fraction bits, ties away from zero
+    (adding half of the lowest kept bit to the magnitude's bits, then
+    clearing the 13 low bits)."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_tf32(x):
+    """The 3xTF32 split: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact)."""
+    hi = _tf32(x)
+    return hi, _tf32(np.asarray(x, np.float32) - hi)
+
+
+def test_tf32_split_reconstructs_f32():
+    """Both halves are tf32 values and hi + lo is x to within 2^-21
+    relative, over f32 values of every sign and many binades."""
+    one = np.float32(1)
+    tie = one + np.float32(2.0 ** -11)
+    assert _tf32(tie) == one + np.float32(2.0 ** -10)          # ties away from zero
+    assert _tf32(-tie) == -(one + np.float32(2.0 ** -10))
+    assert _tf32(np.nextafter(tie, one)) == one
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(400_000) * np.exp2(rng.integers(-60, 60, 400_000))).astype(np.float32)
+    hi, lo = _split_tf32(x)
+    assert not (hi.view(np.uint32) & 0x1FFF).any() and not (lo.view(np.uint32) & 0x1FFF).any()
+    err = np.abs(x.astype(np.float64) - hi.astype(np.float64) - lo.astype(np.float64))
+    assert (err <= 2.0 ** -21 * np.abs(x.astype(np.float64))).all()
+    assert (np.abs(x - hi) > 2.0 ** -21 * np.abs(x)).any()     # hi alone is not enough
+
+
+def test_3xtf32_contraction_is_f32_accurate():
+    """The f32 body's products at conv1's geometry (64 neighbours, 24 kernel
+    points, C=32, conv1's radius and sigma; 16 centers): w_lo f_hi + w_hi f_lo
+    + w_hi f_hi from the split f32 weights and features, added to an f32
+    accumulator rounded after every 8-neighbour product as the m16n8k8
+    tensor-core steps do, holds within 1e-5 * max|t| of the float64
+    contraction; one tf32 pass does not."""
+    spec = backbone_plan(EtchConfig(num_point=5000, batch_size=8))[0][1]
+    nn, C, A = spec["n_neighbor"], spec["dim_in"], 60
+    rng = np.random.RandomState(0)
+    z, th = rng.uniform(-0.9, 0.9, 2500), rng.uniform(0, 2 * np.pi, 2500)
+    r = 0.15 + 0.03 * np.cos(3 * z)
+    xyz = torch.tensor(np.stack([r * np.cos(th), r * np.sin(th), z], -1)[None], dtype=torch.float32)
+    ctr = xyz[:, :16].contiguous()
+    nbr = ball_query_torch(ctr, xyz, spec["radius"], nn)
+    kp = get_kernel_points(spec["radius"], spec["kernel_size"])
+    rk = torch.from_numpy(np.einsum("aij,kj->aki", get_anchors(), kp).reshape(-1, 3).copy())
+    K = rk.shape[0] // A
+    w = interconv._weights(xyz, ctr, nbr, rk, spec["sigma"])[0].reshape(16, nn, A, K).numpy()
+    feats = rng.randn(2500, A * C).astype(np.float32)
+    f = feats[nbr[0].numpy()].reshape(16, nn, A, C)
+    assert (w > 0).mean() > 0.05
+    t64 = np.einsum("cnak,cnad->cakd", w.astype(np.float64), f.astype(np.float64))
+    scale = np.abs(t64).max()
+    (wh, wl), (fh, fl) = _split_tf32(w), _split_tf32(f)
+    acc = np.zeros(t64.shape, np.float32)
+    one = np.zeros(t64.shape, np.float32)
+    def step(acc, a, b, sl):
+        part = np.einsum("cnak,cnad->cakd", a[:, sl].astype(np.float64), b[:, sl].astype(np.float64))
+        return (acc.astype(np.float64) + part).astype(np.float32)
+
+    for n0 in range(0, nn, 8):
+        sl = slice(n0, n0 + 8)
+        for a, b in ((wl, fh), (wh, fl), (wh, fh)):
+            acc = step(acc, a, b, sl)
+        one = step(one, wh, fh, sl)
+    assert np.abs(acc - t64).max() <= 1e-5 * scale
+    assert np.abs(one - t64).max() > 1e-5 * scale
+
+
+def test_interconv_tf32_geometry():
+    """Shared memory of the f32 body at the main path's shapes (64
+    neighbours): 42,240 bytes at C=32 (5 blocks an SM), 75,008 at C=64 (3
+    blocks); widths that are not a multiple of 4 up to 64 raise."""
+    assert interconv.tf32_smem_bytes(64, 32) == 42240
+    assert interconv.tf32_smem_bytes(64, 64) == 75008
+    for C in (4, 8, 12, 32, 60, 64):
+        interconv.check_tf32_geometry(64, C)
+    for nn, C in ((64, 2), (64, 6), (64, 68), (9000, 64)):
+        with pytest.raises(ValueError):
+            interconv.check_tf32_geometry(nn, C)
+
+
+@pytest.mark.parametrize("E,H", [(24, 8), (24, 4), (12, 1), (48, 2), (40, 2)])
+def test_attention_padded_tiles_are_exact(E, H):
+    """Head sizes that are neither 1, 2, 4 nor a multiple of 8 or 16 (3, 6,
+    12, 24, 20 here) sit in the kernel's shared memory with each head padded
+    by zero columns to 8 or to a multiple of 16, and every point's keys are
+    padded to 64 rows masked to -inf.  In float64 the padded logits are the
+    head's own exactly, padded keys get weight exactly 0, the padded columns
+    of a v are exactly 0, and the emulated output (weights rounded to bf16)
+    matches attention_torch by the card's bf16 criterion."""
+    Bc, L, hs = 3, 60, E // H
+    hp = 8 if hs <= 8 else -(-hs // 16) * 16
+    g = np.random.RandomState(E + H)
+    q, k, v = (rnd(torch.tensor(g.randn(Bc, L, E) * (hs ** -0.5 if i == 0 else 1.0),
+                                dtype=torch.float32)) for i in range(3))
+
+    def pad(t):
+        out = np.zeros((Bc, 64, H, hp))
+        out[:, :L, :, :hs] = t.double().numpy().reshape(Bc, L, H, hs)
+        return out
+
+    qp, kp, vp = pad(q), pad(k), pad(v)
+    s = np.einsum("bqhd,bkhd->bhqk", qp, kp)
+    heads = q.double().numpy().reshape(Bc, L, H, hs), k.double().numpy().reshape(Bc, L, H, hs)
+    np.testing.assert_array_equal(s[:, :, :L, :L], np.einsum("bqhd,bkhd->bhqk", *heads))
+    s[..., L:] = -np.inf
+    e = np.exp(s - s.max(-1, keepdims=True))
+    a = e / e.sum(-1, keepdims=True)
+    assert (a[..., L:] == 0).all()
+    ab = rnd(torch.from_numpy(a.astype(np.float32))).double().numpy()
+    o = np.einsum("bhqk,bkhd->bqhd", ab, vp)
+    assert (o[..., hs:] == 0).all()
+    out = torch.from_numpy(o[:, :L, :, :hs].reshape(Bc, L, E)).float()
+    ref = attention.attention_torch(q.to(torch.bfloat16), k.to(torch.bfloat16),
+                                    v.to(torch.bfloat16), H)
+    err = (out - ref).abs()
+    assert err.max() <= 1e-2 * ref.abs().max()
+    assert (err / (ref.abs() + 1e-2)).median() <= 1e-3

@@ -8,7 +8,8 @@ at import).  Small shapes; main-path shapes are checked by chip_smoke.py.
 
 Index outputs must be equal (both sides compute direct-difference squared
 distances in the same rounding order); the f32 inter-conv outputs agree to
-1e-5 * max|t| (f32 sums in another order).  The bf16 kernels round at the
+1e-5 * max|t| (f32 sums in another order; the contraction's 3xTF32 products
+also with a float64 plain version).  The bf16 kernels round at the
 same points as their plain versions and differ in summation order only,
 which can move a value across a bf16 rounding boundary now and then:
 max |kernel - plain| <= 1e-2 * max|plain| and a median relative error
@@ -219,6 +220,29 @@ def test_attention_refuses_bad_inputs(cuda):
         attention.attention_cuda(q.float(), k, v, 8)
     with pytest.raises(ValueError):
         attention.attention_cuda(q, k, v, 7)
+    q, k, v = _qkv(cuda, 4, 65, 64, 8)     # more tokens than one 64-row tile
+    with pytest.raises(ValueError, match="L <= 64"):
+        attention.attention_cuda(q, k, v, 8)
+
+
+@pytest.mark.parametrize("hs,E", [(1, 64), (2, 64), (3, 24), (4, 64), (6, 24), (8, 64),
+                                  (16, 64), (32, 64), (64, 64), (128, 128)])
+@pytest.mark.parametrize("M", [1, 133, 2048])
+def test_attention_kernel_head_sizes(cuda, M, hs, E):
+    """Every head-size route of the kernel (masked 8-column tiles, one head
+    a tile, zero-padded heads, k16 steps) at point counts below, near and
+    above one group of a block.  M = 1 is 64 launches of one point each,
+    checked together: one point's outputs are too few for the median
+    criterion, which a single bf16 rounding flip moves."""
+    H = E // hs
+    n = 64 if M == 1 else M
+    q, k, v = _qkv(cuda, n, 60, E, H, seed=hs + M)
+    before = _build.launches["attention"]
+    out = torch.cat([attention.attention_cuda(q[s:s + M], k[s:s + M], v[s:s + M], H)
+                     for s in range(0, n, M)])
+    assert _build.launches["attention"] == before + n // M
+    assert out.shape == (n, 60, E)
+    _close_bf16(out, attention.attention_torch(q, k, v, H))
 
 
 @torch.no_grad()
@@ -311,7 +335,8 @@ def test_interconv_t_bf16_ragged_chunks(cuda, C, c):
 
 
 def test_interconv_t_f32_keeps_the_fp32_body(cuda):
-    """f32 rows still launch `interconv_t` (FP32 FMAs), within 1e-5 * max|t|."""
+    """f32 rows launch `interconv_t` (3xTF32 on the tensor cores), never
+    the bf16 body, within 1e-5 * max|t|."""
     xyz, ctr, nbr, feats, rk, sigma = _conv_inputs(cuda, 32, nn=64, radius=0.3)
     before = dict(_build.launches)
     out = interconv.interconv_t(xyz, ctr, nbr, feats, rk, sigma, 60)
@@ -345,3 +370,51 @@ def test_dircore_kernel_head_sizes(cuda, M, hs):
     assert _build.launches["dircore"] == before + n // M
     assert out.shape == (n, 60)
     _close_bf16(out, dircore.direction_core_torch(tok, params, 64 // hs))
+
+
+@pytest.mark.parametrize("C", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("c", [1, 226, 452, 512])
+def test_interconv_t_f32_ragged_chunks(cuda, C, c):
+    """The 3xTF32 body at the widths of the tiny and full networks (C = 4
+    and 8 pad one m16 tile of channels) and the chunk sizes InterSO3Conv
+    streams, full 64-neighbour balls (two 32-neighbour chunks an anchor)."""
+    xyz, ctr, nbr, feats, rk, sigma = _conv_inputs(cuda, C, c=c, nn=64, radius=0.3)
+    before = _build.launches["interconv_t"]
+    out = interconv.interconv_t(xyz, ctr, nbr, feats, rk, sigma, 60)
+    assert _build.launches["interconv_t"] == before + 1
+    assert out.shape == (2, c, 60, 24, C) and out.dtype == torch.float32
+    ref = interconv.interconv_t_torch(xyz, ctr, nbr, feats, rk, sigma, 60)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_interconv_t_f32_against_float64(cuda):
+    """conv1's geometry (512 of 2500 centers, 64 neighbours, C=32, its
+    radius and sigma): the 3xTF32 products hold within 1e-5 * max|t| of a
+    float64 plain version, so they are f32-accurate, not merely close to
+    another f32 sum."""
+    from etch_tpu_torch.utils.config import EtchConfig, backbone_plan
+    spec = backbone_plan(EtchConfig(num_point=5000, batch_size=8))[0][1]
+    xyz = _cloud(cuda, 2, 2500, 7)
+    ctr = xyz[:, :512].contiguous()
+    nbr = ball_query.ball_query_cuda(ctr, xyz, spec["radius"], spec["n_neighbor"])
+    kp = get_kernel_points(spec["radius"], spec["kernel_size"])
+    rk = np.einsum("aij,kj->aki", get_anchors(), kp).reshape(-1, 3)
+    rk = torch.from_numpy(np.ascontiguousarray(rk)).to(cuda)
+    feats = torch.randn((2, 2500, 60 * spec["dim_in"]), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(7))
+    out = interconv.interconv_t_cuda(xyz, ctr, nbr, feats, rk, spec["sigma"], 60)
+    ref = interconv.interconv_t_torch(xyz.double(), ctr.double(), nbr, feats.double(),
+                                      rk.double(), spec["sigma"], 60)
+    assert (out.double() - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_interconv_t_f32_kernel_point_blocks(cuda, kernel_size):
+    """30 kernel points (blocks of 24 and 6) and 66 (24, 24 and 18)."""
+    xyz, ctr, nbr, feats, _, sigma = _conv_inputs(cuda, 8, nn=40, radius=0.3)
+    kp = get_kernel_points(0.3, kernel_size)
+    rk = torch.from_numpy(np.einsum("aij,kj->aki", get_anchors(), kp).reshape(-1, 3).copy())
+    out = interconv.interconv_t_cuda(xyz, ctr, nbr, feats, rk.to(cuda), sigma, 60)
+    ref = interconv.interconv_t_torch(xyz, ctr, nbr, feats, rk.to(cuda), sigma, 60)
+    assert out.shape == (2, 100, 60, kp.shape[0], 8)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
