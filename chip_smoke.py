@@ -10,13 +10,13 @@ built at first use).  Phases, each of which raises on failure:
   2. build: nvcc the kernels, print the build time and ptxas register use;
   3. kernel vs plain PyTorch version on the card, at every shape a request
      launches it at on the main paths (FPS at the EPN's and the U-Net's five
-     sampling shapes, kNN at the U-Net's fourteen, ball query at the four
+     sampling shapes, kNN at the U-Net's thirteen, ball query at the four
      EPN convs, both contractions at conv1, conv2 and conv3 in 512-center
      chunks and their ragged last chunk, the occupancy convs likewise, the
      anchor attention at full and ragged 2048-point chunks, vector attention
-     at each U-Net level), each with its launches a request: FPS, kNN and
-     ball-query indices must be equal, the f32 inter-conv contraction (3xTF32
-     on the tensor cores; C >= 4 and C == 1 rows) and occupancy conv within
+     at each U-Net level): FPS, kNN and ball-query indices must be equal,
+     the f32 inter-conv contraction (3xTF32 on the tensor cores; C >= 4 and
+     C == 1 rows) and occupancy conv within
      1e-5 * max|t| (f32 sums in another order); the bf16 kernels (contraction
      on bf16 rows, C >= 8 and C == 1, occupancy conv with its projection,
      direction core, anchor attention, vector attention, grouped head) within
@@ -26,10 +26,9 @@ built at first use).  Phases, each of which raises on failure:
      kernel's bound (the larger of its bytes over 3.35 TB/s and its
      operations over 989 TFLOP/s of bf16 tensor work, 495 TFLOP/s of TF32
      for the f32 contraction's three passes, or 67 TFLOP/s of FP32, from
-     the shapes: `bound`), each kernel's gap (the sum over a request's
-     launches of kernel time minus bound), and for the anchor attention the
-     time of `scaled_dot_product_attention` on the same inputs (no other
-     kernel has one PyTorch call that computes its function);
+     the shapes: `bound`), and for the anchor attention the time of
+     `scaled_dot_product_attention` on the same inputs (no other kernel has
+     one PyTorch call that computes its function);
   4. small-input reference: the serving step at tiny widths on the card
      (kernels) against the same weights on the CPU (plain versions), in five
      variants (SMALL_STEPS): f32; bf16 with two direction layers (the fused
@@ -44,7 +43,10 @@ built at first use).  Phases, each of which raises on failure:
      anchor-attention launches a request) and f32: one warm request, the
      network's stage times (median of three requests), then timed
      requests; every kernel of the path's own set must have launched
-     during them and no other; then a B=1
+     during them and no other, and at no shape that phase 3 did not time
+     (the launch counters count each kernel by the sizes it was launched
+     at, `_build.shape_launches`); each timed shape's launches a request
+     and gap (launches x (time - bound)) come from those counts; then a B=1
      request's latency (not for the chunked variant);
   6. the single-scan entry point: `python -m etch_tpu_torch.cli.infer` (its
      `main`) on the repository's 4D-DRESS scan, f32, N=5000, synthetic body,
@@ -53,7 +55,8 @@ built at first use).  Phases, each of which raises on failure:
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on a path and per request, its headline shape's times, bound and
-library time, its gap, and every shape's numbers); the last line is
+library time, its gap summed over its shapes, and every shape's numbers
+with its counted launches a request); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the etch_tpu_torch package beside it, the script exits non-zero
 before printing either.
@@ -154,10 +157,10 @@ def interconv_bound(B, P, c, nn, A, K, C, elem):
 
 
 def chunks(n, size=512):
-    """{chunk size: count} of n centers streamed `size` at a time, as
-    InterSO3Conv does (the last chunk ragged)."""
-    full, rest = divmod(n, size)
-    return {size: full, **({rest: 1} if rest else {})}
+    """The chunk sizes of n centers streamed `size` at a time, as
+    InterSO3Conv does: `size`, and the ragged last one where there is one."""
+    rest = n % size
+    return [size] + ([rest] if rest else []) if n >= size else [n]
 
 
 def cuda_ms(torch, fn, reps):
@@ -177,10 +180,10 @@ def cuda_ms(torch, fn, reps):
 def compare_kernels(torch, dev):
     """Phase 3: every kernel against its plain version at main-path shapes.
     Returns {kernel: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-    "library_ms", "gap_ms", "shapes"}}: the numbers of the first (headline)
-    shape of each kernel, the largest error over its shapes, the sum over a
-    request's launches of (ms - bound), and every shape's numbers, with its
-    launches a request, under "shapes"."""
+    "library_ms", "shapes"}}: the numbers of the first (headline) shape of
+    each kernel, the largest error over its shapes, and every shape's numbers
+    under "shapes", each with the key its launches are counted under."""
+    from etch_tpu_torch import _build
     from etch_tpu_torch.geometry.icosahedral import get_anchors
     from etch_tpu_torch.geometry.kernel_points import get_kernel_points
     from etch_tpu_torch.nn import interconv
@@ -193,27 +196,24 @@ def compare_kernels(torch, dev):
 
     results = {}
 
-    def record(kernel, shape, lpr, err, ms, plain_ms, bnd, library_ms=None):
-        """One shape's numbers; `lpr`: its launches a request on the path
-        that runs the kernel (worked out from the code; phase 5 checks each
-        kernel's sum against the launches it counts)."""
+    def record(kernel, shape, err, ms, plain_ms, bnd, library_ms=None):
+        """One shape's numbers, called just after the kernel's timed launches:
+        the shape's key is that of the kernel's latest launch."""
         bound_ms, by = bnd
         lib = "" if library_ms is None else f"  library {library_ms:.3f} ms"
         print(f"  {kernel:19s} {shape:34s} max_abs_err {err:.3g}  kernel {ms:.3f} ms"
               f"  plain {plain_ms:.3f} ms  bound {bound_ms:.4f} ms ({by}, "
-              f"{100 * bound_ms / ms:.1f}% of it){lib}  x{lpr}/request")
-        entry = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": by, "max_abs_err": err, "launches_per_request": lpr,
-                 "gap_ms": lpr * (ms - bound_ms)}
+              f"{100 * bound_ms / ms:.1f}% of it){lib}")
+        entry = {"shape": shape, "key": _build.last_shape[kernel], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                 "max_abs_err": err}
         prev = results.get(kernel)
         if prev is None:
             results[kernel] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                "bound_ms": bound_ms, "bound_by": by,
-                               "library_ms": library_ms, "gap_ms": entry["gap_ms"],
-                               "shapes": [entry]}
+                               "library_ms": library_ms, "shapes": [entry]}
         else:
             prev["max_abs_err"] = max(prev["max_abs_err"], err)
-            prev["gap_ms"] += entry["gap_ms"]
             prev["shapes"].append(entry)
 
     xyz = torch.from_numpy(capsule_clouds(B, N, seed=1)).to(dev)
@@ -227,21 +227,21 @@ def compare_kernels(torch, dev):
         ref = fp.fps_torch(src, m)
         if not torch.equal(out, ref):
             raise AssertionError(f"fps {n}->{m}: kernel and plain indices differ")
-        record("fps", f"B={B} {n}->{m}", 1, 0.0,
+        record("fps", f"B={B} {n}->{m}", 0.0,
                cuda_ms(torch, lambda: fp.fps_cuda(src, m), 5),
                cuda_ms(torch, lambda: fp.fps_torch(src, m), 1),
                bound(B * n * 12 + B * m * 4, 0.0, 10.0 * B * m * n))
         clouds[m] = gather_points(src, out).contiguous()
 
-    # kNN launches of a request (k, queries, supports, launches): each U-Net
-    # level's self neighbours, the down neighbours of levels 1-4 and the up
-    # 3-NN of levels 0-3; 5000x1250 k=3 also propagates the EPN's features
+    # kNN shapes of a request (k, queries, supports): each U-Net level's self
+    # neighbours, the down neighbours of levels 1-4 and the up 3-NN of
+    # levels 0-3 (5000x1250 k=3 also propagates the EPN's features)
     lv = (N, 1250, 312, 78, 19)
-    knn_shapes = [(8, N, N, 1), (16, 1250, N, 1), (3, N, 1250, 2)]
-    knn_shapes += [(16, lv[l], lv[l], 1) for l in range(1, 5)]
-    knn_shapes += [(16, lv[l], lv[l - 1], 1) for l in range(2, 5)]
-    knn_shapes += [(3, lv[l], lv[l + 1], 1) for l in range(1, 4)]
-    for k, Q, S, lpr in knn_shapes:
+    knn_shapes = [(8, N, N), (16, 1250, N), (3, N, 1250)]
+    knn_shapes += [(16, lv[l], lv[l]) for l in range(1, 5)]
+    knn_shapes += [(16, lv[l], lv[l - 1]) for l in range(2, 5)]
+    knn_shapes += [(3, lv[l], lv[l + 1]) for l in range(1, 4)]
+    for k, Q, S in knn_shapes:
         q, s = clouds[Q], clouds[S]
         label = f"k={k} {Q}x{S}"
         idx, d2 = kn.knn_cuda(q, s, k)
@@ -251,7 +251,7 @@ def compare_kernels(torch, dev):
         err = (d2 - rd2).abs().max().item()
         if err != 0.0:
             raise AssertionError(f"knn {label}: squared distances differ by {err}")
-        record("knn", f"B={B} {label}", lpr, err,
+        record("knn", f"B={B} {label}", err,
                cuda_ms(torch, lambda: kn.knn_cuda(q, s, k), 5),
                cuda_ms(torch, lambda: kn.knn_torch(q, s, k), 2),
                bound(B * (Q + S) * 12 + B * Q * k * 8, 0.0, 8.0 * B * Q * S))
@@ -270,7 +270,7 @@ def compare_kernels(torch, dev):
         if not torch.equal(nbr, bq.ball_query_torch(q, s, r, ns)):
             raise AssertionError(f"ball_query conv{i}: kernel and plain indices differ")
         Q, S = q.shape[1], s.shape[1]
-        record("ball_query", f"B={B} {Q}x{S} r={r:.3f} ns={ns}", 1, 0.0,
+        record("ball_query", f"B={B} {Q}x{S} r={r:.3f} ns={ns}", 0.0,
                cuda_ms(torch, lambda: bq.ball_query_cuda(q, s, r, ns), 5),
                cuda_ms(torch, lambda: bq.ball_query_torch(q, s, r, ns), 2),
                bound(B * (Q + S) * 12 + B * Q * ns * 4, 0.0, 8.0 * B * Q * S))
@@ -283,15 +283,15 @@ def compare_kernels(torch, dev):
         rk = np.einsum("aij,kj->aki", anchors, kp).reshape(-1, 3)
         return torch.from_numpy(np.ascontiguousarray(rk)).to(dev)
 
-    def check(kernel, label, lpr, out, ref, fn, plain_fn, bnd):
+    def check(kernel, label, out, ref, fn, plain_fn, bnd):
         err = (out - ref).abs().max().item()
         scale = ref.abs().max().item()
         if not err <= INTERCONV_RTOL * scale:
             raise AssertionError(f"{kernel} {label}: max abs err {err} > "
                                  f"{INTERCONV_RTOL} * {scale}")
-        record(kernel, label, lpr, err, cuda_ms(torch, fn, 5), cuda_ms(torch, plain_fn, 1), bnd)
+        record(kernel, label, err, cuda_ms(torch, fn, 5), cuda_ms(torch, plain_fn, 1), bnd)
 
-    def check_bf16(kernel, label, lpr, fn, plain_fn, bnd, library_fn=None):
+    def check_bf16(kernel, label, fn, plain_fn, bnd, library_fn=None):
         out, ref = fn().float(), plain_fn().float()
         err = (out - ref).abs()
         worst, scale = err.max().item(), ref.abs().max().item()
@@ -302,16 +302,17 @@ def compare_kernels(torch, dev):
         if not (worst <= BF16_ATOL * scale and med <= BF16_MEDIAN_REL):
             raise AssertionError(f"{kernel} {label}: max abs err {worst} (limit "
                                  f"{BF16_ATOL} * {scale}), median rel err {med}")
-        record(kernel, label, lpr, worst, cuda_ms(torch, fn, 5), cuda_ms(torch, plain_fn, 1),
-               bnd, None if library_fn is None else cuda_ms(torch, library_fn, 5))
+        ms = cuda_ms(torch, fn, 5)
+        library_ms = None if library_fn is None else cuda_ms(torch, library_fn, 5)
+        record(kernel, label, worst, ms, cuda_ms(torch, plain_fn, 1), bnd, library_ms)
 
     # occupancy conv of conv0: the 512-center chunks of the 2500 FPS centers
     # and the ragged last one
     conv0 = specs[0]
     rk, sg, ns = rk_of(conv0), conv0["sigma"], conv0["n_neighbor"]
-    for c, lpr in chunks(conv0["n_out"]).items():
+    for c in chunks(conv0["n_out"]):
         ctr, nbr = q2500[:, :c].contiguous(), nbrs[0][:, :c].contiguous()
-        check("interconv_ones", f"B={B} P={N} c={c} nn={ns}", lpr,
+        check("interconv_ones", f"B={B} P={N} c={c} nn={ns}",
               interconv.interconv_ones_cuda(xyz, ctr, nbr, rk, sg, 60),
               interconv.interconv_ones_torch(xyz, ctr, nbr, rk, sg, 60),
               lambda: interconv.interconv_ones_cuda(xyz, ctr, nbr, rk, sg, 60),
@@ -329,10 +330,10 @@ def compare_kernels(torch, dev):
         feats = torch.randn((B, P, 60 * C), device=dev, generator=gen)
         nbr_all = bq.ball_query_cuda(epn_pts[spec["n_out"]], pts, spec["radius"], nn)
         rk, sg = rk_of(spec), spec["sigma"]
-        for c, lpr in chunks(spec["n_out"]).items():
+        for c in chunks(spec["n_out"]):
             ctr = pts[:, :c].contiguous()          # lazy sampling: the first points
             nbr = nbr_all[:, :c].contiguous()
-            check("interconv_t", f"B={B} P={P} c={c} of {spec['n_out']} nn={nn} C={C}", lpr,
+            check("interconv_t", f"B={B} P={P} c={c} of {spec['n_out']} nn={nn} C={C}",
                   interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
                   interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
                   lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
@@ -354,7 +355,7 @@ def compare_kernels(torch, dev):
     ctr = q2500[:, :512].contiguous()
     nbr = bq.ball_query_cuda(ctr, q2500, conv1["radius"], conv1["n_neighbor"])
     rk, sg = rk_of(conv1), conv1["sigma"]
-    check("interconv_t_c1", f"B={B} P=2500 c=512 nn={conv1['n_neighbor']} C=1 f32", 1,
+    check("interconv_t_c1", f"B={B} P=2500 c=512 nn={conv1['n_neighbor']} C=1 f32",
           interconv.interconv_t_c1_cuda(q2500, ctr, nbr, feats, rk, sg, 60),
           interconv.interconv_t_c1_torch(q2500, ctr, nbr, feats, rk, sg, 60),
           lambda: interconv.interconv_t_c1_cuda(q2500, ctr, nbr, feats, rk, sg, 60),
@@ -388,9 +389,9 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
     rk, sg, ns = rk_of(conv0), conv0["sigma"], conv0["n_neighbor"]
     w = randn(24, conv0["dim_out"], scale=(6 / (24 + conv0["dim_out"])) ** 0.5)
     Co = w.shape[1]
-    for c, lpr in chunks(conv0["n_out"]).items():
+    for c in chunks(conv0["n_out"]):
         ctr, nbr = q2500[:, :c].contiguous(), nbr0[:, :c].contiguous()
-        check("interconv_ones_proj", f"B={B} P={N} c={c} nn={ns} Co={Co}", lpr,
+        check("interconv_ones_proj", f"B={B} P={N} c={c} nn={ns} Co={Co}",
               lambda: interconv.interconv_ones_proj_cuda(xyz, ctr, nbr, rk, sg, 60, w),
               lambda: interconv.interconv_ones_proj_torch(xyz, ctr, nbr, rk, sg, 60, w),
               bound(B * N * 12 + B * c * 12 + B * c * ns * 4 + 1440 * 12 + B * c * 60 * Co * 2,
@@ -403,10 +404,10 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
         feats = randn(B, P, 60 * C).to(bf)
         nbr_all = ball_query(epn_pts[spec["n_out"]], pts, spec["radius"], nn)
         rk, sg = rk_of(spec), spec["sigma"]
-        for c, lpr in chunks(spec["n_out"]).items():
+        for c in chunks(spec["n_out"]):
             ctr, nbr = pts[:, :c].contiguous(), nbr_all[:, :c].contiguous()
             check("interconv_t_bf16", f"B={B} P={P} c={c} of {spec['n_out']} nn={nn} C={C}",
-                  lpr, lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
+                  lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
                   lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
                   interconv_bound(B, P, c, nn, 60, 24, C, 2))
         del feats
@@ -415,7 +416,7 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
     ctr = q2500[:, :512].contiguous()
     nbr = ball_query(ctr, q2500, spec["radius"], spec["n_neighbor"])
     rk, sg = rk_of(spec), spec["sigma"]
-    check("interconv_t_c1", f"B={B} P=2500 c=512 nn={spec['n_neighbor']} C=1 bf16", 1,
+    check("interconv_t_c1", f"B={B} P=2500 c=512 nn={spec['n_neighbor']} C=1 bf16",
           lambda: interconv.interconv_t_c1_cuda(q2500, ctr, nbr, feats, rk, sg, 60),
           lambda: interconv.interconv_t_c1_torch(q2500, ctr, nbr, feats, rk, sg, 60),
           c1_bound(spec["n_neighbor"], 2))
@@ -435,7 +436,7 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
     tokens = randn(B * N, 60, E).to(bf)
     M, A = B * N, 60
     flop = 2.0 * M * A * (2 * 3 * E * E + E * E + E * V + 2 * V * V + V) + 4.0 * 2 * M * A * A * E
-    check("dircore", f"M={M} A={A} E={E} H={H} V={V}", 1,
+    check("dircore", f"M={M} A={A} E={E} H={H} V={V}",
           lambda: dircore.direction_core_cuda(tokens, params, H),
           lambda: torch.cat([dircore.direction_core_torch(tokens[s:s + 2048], params, H)
                              for s in range(0, B * N, 2048)]),
@@ -448,11 +449,11 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
     # (Bc * H, 60, hs), q already scaled)
     L, hs = 60, E // H
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for Bc, per_layer in chunks(B * N, 2048).items():
+    for Bc in chunks(B * N, 2048):
         q, k, v = (randn(Bc, L, E, scale=hs ** -0.5 if i == 0 else 1.0).to(bf) for i in range(3))
         qh, kh, vh = (t.reshape(Bc, L, H, hs).transpose(1, 2).reshape(Bc * H, L, hs).contiguous()
                       for t in (q, k, v))
-        check("attention", f"Bc={Bc} L={L} E={E} H={H}", 2 * per_layer,
+        check("attention", f"Bc={Bc} L={L} E={E} H={H}",
               lambda: attention.attention_cuda(q, k, v, H),
               lambda: attention.attention_torch(q, k, v, H),
               bound(3 * Bc * L * E * 2 + Bc * L * E * 4, 4.0 * Bc * L * L * E),
@@ -460,13 +461,10 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
         del q, k, v, qh, kh, vh
 
     # vector attention at each U-Net level's shape and width (magnitude
-    # planes 64, 128, 256, 256, 512; confidence 128 at level 0), launches a
-    # request: level l runs blocks[l] - 1 encoder blocks and one decoder
-    # block in each U-Net, blocks (2, 3, 4, 6, 3)
+    # planes 64, 128, 256, 256, 512; confidence 128 at level 0)
     xyz5 = xyz.contiguous()
     geom = unet_geometry(xyz5, (1, 4, 4, 4, 4), (8, 16, 16, 16, 16))
-    for lvl, c, lpr in ((0, 64, 2), (0, 128, 2), (1, 128, 6), (2, 256, 8), (3, 256, 12),
-                        (4, 512, 6)):
+    for lvl, c in ((0, 64), (0, 128), (1, 128), (2, 256), (3, 256), (4, 512)):
         idx = geom[lvl]["self"]
         Bl, Nl, nsl = idx.shape
         cs = c // 8
@@ -476,7 +474,7 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
                 torch.stack([randn(cs).abs() + 0.5, randn(cs)]),
                 randn(cs, cs, scale=cs ** -0.5), randn(cs))
         R = Bl * Nl
-        check("vector_attention", f"R={R} ns={nsl} c={c}", lpr,
+        check("vector_attention", f"R={R} ns={nsl} c={c}",
               lambda: vector_attention.vector_attention_cuda(*args),
               lambda: vector_attention.vector_attention_torch(*args),
               bound(R * c * 2 * 3 + R * nsl * (4 + c * 2) + R * c * 4,
@@ -488,7 +486,7 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
              randn(k * c0, scale=0.1), randn(k, c0, scale=(6 / (k + c0)) ** 0.5),
              randn(k, scale=0.1))
     R = B * N
-    check("grouped_head", f"R={R} c0={c0} k={k}", 1,
+    check("grouped_head", f"R={R} c0={c0} k={k}",
           lambda: grouped_head.grouped_head_cuda(*gargs),
           lambda: grouped_head.grouped_head_torch(*gargs),
           bound(R * c0 * 2 + c0 * k * c0 * 2 + R * k * 4, 2.0 * R * c0 * k * c0,
@@ -617,7 +615,8 @@ def stage_times(torch, pipe, pts, reps=TIMED_REQUESTS):
 
 def main_path(torch, _build, path, latency=True):
     """Phase 5 for one serving path ("bf16", "bf16_chunked" or "f32"):
-    returns (launch counts of its timed requests, its stage times)."""
+    returns (launch counts of its timed requests, the same per kernel and
+    shape, its stage times)."""
     from etch_tpu_torch.pipeline import build_pipeline
     from etch_tpu_torch.utils.config import EtchConfig
 
@@ -641,6 +640,7 @@ def main_path(torch, _build, path, latency=True):
     _build.reset_launch_counts()
     out, times = run_requests(torch, pipe, pts, TIMED_REQUESTS)
     launches = dict(_build.launches)
+    shapes = {k: dict(v) for k, v in _build.shape_launches.items()}
     print(f"launches during {TIMED_REQUESTS} {path} requests: {json.dumps(launches)}")
     ran = {k for k, v in launches.items() if v}
     if ran != set(PATH_KERNELS[path]):
@@ -652,10 +652,10 @@ def main_path(torch, _build, path, latency=True):
     if launches["attention"] != (attn_calls * TIMED_REQUESTS if "attention" in ran else 0):
         raise AssertionError(f"attention launched {launches['attention']} times in "
                              f"{TIMED_REQUESTS} requests")
-    shapes = {"vectors": (B, N, 3), "inner_points": (B, N, 3), "part_labels": (B, N),
-              "confidences": (B, N, 1), "markers": (B, 86, 3), "markers_valid": (B, 86),
-              "verts": (B, 6890, 3), "joints": (B, 45, 3)}
-    for key, shape in shapes.items():
+    expected = {"vectors": (B, N, 3), "inner_points": (B, N, 3), "part_labels": (B, N),
+                "confidences": (B, N, 1), "markers": (B, 86, 3), "markers_valid": (B, 86),
+                "verts": (B, 6890, 3), "joints": (B, 45, 3)}
+    for key, shape in expected.items():
         if tuple(out[key].shape) != shape:
             raise AssertionError(f"{key}: shape {tuple(out[key].shape)} != {shape}")
     for key in ("vectors", "confidences", "markers", "verts", "joints"):
@@ -677,7 +677,31 @@ def main_path(torch, _build, path, latency=True):
         _, times1 = run_requests(torch, pipe1, pts[:1], TIMED_REQUESTS)
         print(f"run_batch B=1 {path} latency: ms {[round(t, 2) for t in times1]}, median "
               f"{statistics.median(times1):.2f} ms")
-    return launches, stages
+    return launches, shapes, stages
+
+
+def per_shape_launches(kernels, counted, counted_on):
+    """Each timed shape's launches a request, from `counted` ({kernel: {shape
+    key: launches}} of the timed requests of path `counted_on[kernel]`), and
+    its gap (launches x (time - bound)); a kernel's gap is the sum over its
+    shapes.  Raises where a path launched a kernel at a shape that phase 3
+    did not time."""
+    for name, k in kernels.items():
+        if name not in counted:   # the C == 1 body runs on no full-width path
+            k["gap_ms"] = None
+            for e in k["shapes"]:
+                e["launches_per_request"] = e["gap_ms"] = None
+            continue
+        untimed = set(counted[name]) - {e["key"] for e in k["shapes"]}
+        if untimed:
+            raise AssertionError(f"{name}: the {counted_on[name]} path launched it at shapes "
+                                 f"phase 3 did not time: {sorted(untimed)}")
+        for e in k["shapes"]:
+            e["launches_per_request"] = counted[name].get(e["key"], 0) / TIMED_REQUESTS
+            e["gap_ms"] = e["launches_per_request"] * (e["ms"] - e["bound_ms"])
+            print(f"  {name:19s} {e['shape']:34s} x{e['launches_per_request']:g}/request "
+                  f"({counted_on[name]}), gap {e['gap_ms']:.3f} ms")
+        k["gap_ms"] = sum(e["gap_ms"] for e in k["shapes"])
 
 
 def entry_point(torch, _build):
@@ -780,16 +804,17 @@ def main():
                                      "tiny 1-channel steps")
 
     # 5. main paths at full width: bf16 (what bench.py times), bf16 with the
-    # chunked direction core, then f32; each kernel's count from the first
+    # chunked direction core, then f32; each kernel's counts from the first
     # path that runs it
-    stages = {}
+    stages, counted, counted_on = {}, {}, {}
     for path in ("bf16", "bf16_chunked", "f32"):
-        counts, stages[path] = main_path(torch, _build, path,
-                                         latency=path != "bf16_chunked")
+        counts, shapes, stages[path] = main_path(torch, _build, path,
+                                                 latency=path != "bf16_chunked")
         for k in PATH_KERNELS[path]:
             if k not in launches:
                 launches[k] = counts[k]
                 per_request[k] = (counts[k] / TIMED_REQUESTS, path)
+                counted[k], counted_on[k] = shapes[k], path
     print(f"direction head ms B={B}: fused {stages['bf16']['direction_head']}, chunked "
           f"{stages['bf16_chunked']['direction_head']}; forward fused "
           f"{stages['bf16']['forward']}, chunked {stages['bf16_chunked']['forward']}")
@@ -800,13 +825,8 @@ def main():
     idle = [name for name in SOURCES if not launches.get(name)]
     if idle:
         raise AssertionError(f"kernels never launched on a path: {idle}")
-    # phase 3's launches a request per shape, worked out from the code, must
-    # add up to what phase 5 counted (the C == 1 body runs on no full-width path)
-    for name, k in kernels.items():
-        lpr = sum(e["launches_per_request"] for e in k["shapes"])
-        if name != "interconv_t_c1" and lpr != per_request[name][0]:
-            raise AssertionError(f"{name}: phase 3 counts {lpr} launches a request, "
-                                 f"the {per_request[name][1]} path {per_request[name][0]}")
+    print("launches a request at each timed shape, counted on the main paths:")
+    per_shape_launches(kernels, counted, counted_on)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"etch_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[name],

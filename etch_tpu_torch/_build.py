@@ -11,7 +11,9 @@ Nothing here runs at import time: the CPU-only test environment imports every
 module, and it has neither `nvcc` nor a card.
 
 Every wrapper that launches a kernel goes through `launch`, which adds one to
-`launches[<kernel>]` and raises if the entry point returns a CUDA error.
+`launches[<kernel>]` and to `shape_launches[<kernel>][<shape>]` (the entry
+point and its scalar arguments: the sizes and constants it was launched
+with) and raises if the entry point returns a CUDA error.
 """
 
 from __future__ import annotations
@@ -62,11 +64,22 @@ launches = {"fps": 0, "knn": 0, "ball_query": 0, "interconv_ones": 0,
             "interconv_t": 0, "interconv_ones_proj": 0, "interconv_t_bf16": 0,
             "interconv_t_c1": 0, "dircore": 0, "attention": 0, "vector_attention": 0,
             "grouped_head": 0}
+# Launches per kernel and shape since the last reset_launch_counts(), and
+# the shape of each kernel's latest launch.
+shape_launches = {name: {} for name in launches}
+last_shape = {}
+
+
+def shape_key(entry: str, args) -> tuple:
+    """A launch's shape: its entry point and scalar arguments, the sizes and
+    such constants as sigma or a radius (pointers are ctypes objects)."""
+    return (entry,) + tuple(a for a in args if type(a) in (int, float))
 
 
 def reset_launch_counts() -> None:
     for name in launches:
         launches[name] = 0
+        shape_launches[name].clear()
 
 
 def _nvcc() -> str:
@@ -137,6 +150,9 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(
             f"{entry}: CUDA error {err}: {lib.etch_error_string(err).decode()}")
     launches[kernel] += 1
+    key = shape_key(entry, args)
+    shape_launches[kernel][key] = shape_launches[kernel].get(key, 0) + 1
+    last_shape[kernel] = key
 
 
 def check_cuda(name: str, *tensors_and_dtypes) -> torch.device:

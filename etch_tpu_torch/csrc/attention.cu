@@ -21,7 +21,8 @@
 // the exponentials, 67 M with the keys padded to 64, about 0.017 ms through
 // the special-function units (16 a clock an SM); the products are a few
 // GFLOP.  Design, the direction core's attention (csrc/dircore.cu) as a
-// kernel of its own:
+// kernel of its own; both call the per-head attention of common.cuh
+// (etch_attention_tile8, etch_attention_head16):
 //   - kGroups points a block, 4 warps each; a warp owns 16 of the 64 padded
 //     query rows.  Each group copies its point's k and v into shared memory
 //     by 16-byte cp.async as bf16 rows padded by 8 elements (ldmatrix phases
@@ -135,89 +136,32 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qp = q + base;
   const int r0 = 16 * warp, g = lane >> 2, t2 = 2 * (lane & 3);
   if constexpr (HT <= 8) {
-    constexpr int kHeadsPerTile = 8 / HT;
     for (int nt = 0; nt < ly.ep / 8; ++nt) {   // 8-column tile of q, k, v, o
-      uint32_t kb[2][4], vb[2][4];   // keys 0-31 and 32-63
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        etch_ldsm_x4(kb[u], ks + (32 * u + lane) * ly.ld + 8 * nt);
-        etch_ldsm_x4_trans(vb[u], vs + (32 * u + lane) * ly.ld + 8 * nt);
-      }
-      const uint32_t qa0 = q_pair(qp, ly, r0 + g, 8 * nt + t2);
-      const uint32_t qa1 = q_pair(qp, ly, r0 + g + 8, 8 * nt + t2);
-      float ot[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int hh = 0; hh < kHeadsPerTile; ++hh) {
-        // q restricted to this head's columns of the tile
-        const bool own0 = t2 / HT == hh, own1 = (t2 + 1) / HT == hh;
-        const uint32_t mask = (own0 ? 0x0000ffffu : 0u) | (own1 ? 0xffff0000u : 0u);
-        float s[8][4];
-#pragma unroll
-        for (int jt = 0; jt < 8; ++jt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[jt][e] = 0.f;
-          etch_mma_1688(s[jt], qa0 & mask, qa1 & mask, kb[jt >> 2][jt & 3]);
-        }
-        uint32_t p[4][4];
-        etch_softmax_frags(s, ly.L, p);
-        float oh[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int t = 0; t < 4; ++t)
-          etch_mma_16816(oh, p[t], vb[t >> 1][2 * (t & 1)], vb[t >> 1][2 * (t & 1) + 1]);
-        if (own0) {
-          ot[0] = oh[0];
-          ot[2] = oh[2];
-        }
-        if (own1) {
-          ot[1] = oh[1];
-          ot[3] = oh[3];
-        }
-      }
+      float ot[4];
+      etch_attention_tile8<HT>(
+          [&](uint32_t& a0, uint32_t& a1) {
+            a0 = q_pair(qp, ly, r0 + g, 8 * nt + t2);
+            a1 = q_pair(qp, ly, r0 + g + 8, 8 * nt + t2);
+          },
+          ks + 8 * nt, vs + 8 * nt, ly.ld, ly.L, ot);
       stage(st, ly.ldo, 8 * nt, ot);
     }
   } else {
     for (int h = 0; h < ly.H; ++h) {
       const int c0 = h * ly.hp;
-      float s[8][4];
-#pragma unroll
-      for (int jt = 0; jt < 8; ++jt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[jt][e] = 0.f;
-#pragma unroll
-      for (int kt = 0; kt < HT / 16; ++kt) {   // 16 columns of the head at a time
-        if (16 * kt < ly.hp) {
-          const int c = c0 + 16 * kt + t2;
-          const uint32_t qa[4] = {q_pair(qp, ly, r0 + g, c), q_pair(qp, ly, r0 + g + 8, c),
-                                  q_pair(qp, ly, r0 + g, c + 8),
-                                  q_pair(qp, ly, r0 + g + 8, c + 8)};
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {   // keys 16 jj .. 16 jj + 15
-            uint32_t kb[4];
-            etch_ldsm_x4(kb, ks + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * ly.ld + c0 +
-                                 16 * kt + ((lane >> 3) & 1) * 8);
-            etch_mma_16816(s[2 * jj], qa, kb[0], kb[1]);
-            etch_mma_16816(s[2 * jj + 1], qa, kb[2], kb[3]);
-          }
-        }
-      }
-      uint32_t p[4][4];
-      etch_softmax_frags(s, ly.L, p);
-#pragma unroll
-      for (int j2 = 0; j2 < HT / 16; ++j2) {   // 16 output columns at a time
-        if (16 * j2 < ly.hp) {
-          float o0[4] = {0.f, 0.f, 0.f, 0.f}, o1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            uint32_t vb[4];
-            etch_ldsm_x4_trans(vb, vs + (16 * t + (lane & 15)) * ly.ld + c0 + 16 * j2 +
-                                       (lane >> 4) * 8);
-            etch_mma_16816(o0, p[t], vb[0], vb[1]);
-            etch_mma_16816(o1, p[t], vb[2], vb[3]);
-          }
-          stage(st, ly.ldo, c0 + 16 * j2, o0);
-          stage(st, ly.ldo, c0 + 16 * j2 + 8, o1);
-        }
-      }
+      etch_attention_head16<HT / 16>(
+          [&](int kt, uint32_t (&a)[4]) {   // 16 columns of the head at a time
+            const int c = c0 + 16 * kt + t2;
+            a[0] = q_pair(qp, ly, r0 + g, c);
+            a[1] = q_pair(qp, ly, r0 + g + 8, c);
+            a[2] = q_pair(qp, ly, r0 + g, c + 8);
+            a[3] = q_pair(qp, ly, r0 + g + 8, c + 8);
+          },
+          ks + c0, vs + c0, ly.ld, ly.L, ly.hp / 16,
+          [&](int j, const float (&o0)[4], const float (&o1)[4]) {
+            stage(st, ly.ldo, c0 + 16 * j, o0);
+            stage(st, ly.ldo, c0 + 16 * j + 8, o1);
+          });
     }
   }
   __syncwarp();

@@ -185,6 +185,108 @@ __device__ __forceinline__ void etch_softmax_frags(float (&s)[8][4], int L,
                                          s[2 * t + j][2 * h + 1] * inv[h]);
 }
 
+// Per-head attention of one warp's 16 query rows over 64 keys on the tensor
+// cores, shared by the direction core and the anchor attention.  k and v are
+// bf16 rows in shared memory (row stride ld elements, 16-byte aligned),
+// finite in rows L..63, whose keys are masked to -inf; the softmax takes its
+// max per (query, head).
+
+// The heads of one 8-column tile, head size HS in {1, 2, 4, 8} (8 also takes
+// 3, 5, 6 and 7 padded by zero columns): S = q_h k_h^T by m16n8k8, with q
+// masked to each head's own columns where several heads share the tile
+// (exact: the other columns add zeros).  qa(a0, a1) writes q's m16n8k8 A
+// fragment of the tile, called once k and v are requested; ks, vs: the
+// tile's first column.  Returns the tile's f32 output fragment in ot.
+template <int HS, typename QA>
+__device__ __forceinline__ void etch_attention_tile8(QA qa, const bf16* ks, const bf16* vs,
+                                                     int ld, int L, float (&ot)[4]) {
+  constexpr int kHeadsPerTile = 8 / HS;
+  const int lane = threadIdx.x & 31, t2 = 2 * (lane & 3);
+  uint32_t kb[2][4], vb[2][4];   // keys 0-31 and 32-63
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    etch_ldsm_x4(kb[u], ks + (32 * u + lane) * ld);
+    etch_ldsm_x4_trans(vb[u], vs + (32 * u + lane) * ld);
+  }
+  uint32_t qa0, qa1;
+  qa(qa0, qa1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) ot[e] = 0.f;
+#pragma unroll
+  for (int hh = 0; hh < kHeadsPerTile; ++hh) {
+    const bool own0 = t2 / HS == hh, own1 = (t2 + 1) / HS == hh;
+    const uint32_t mask = (own0 ? 0x0000ffffu : 0u) | (own1 ? 0xffff0000u : 0u);
+    float s[8][4];
+#pragma unroll
+    for (int jt = 0; jt < 8; ++jt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[jt][e] = 0.f;
+      etch_mma_1688(s[jt], qa0 & mask, qa1 & mask, kb[jt >> 2][jt & 3]);
+    }
+    uint32_t p[4][4];
+    etch_softmax_frags(s, L, p);
+    float oh[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      etch_mma_16816(oh, p[t], vb[t >> 1][2 * (t & 1)], vb[t >> 1][2 * (t & 1) + 1]);
+    if (own0) {
+      ot[0] = oh[0];
+      ot[2] = oh[2];
+    }
+    if (own1) {
+      ot[1] = oh[1];
+      ot[3] = oh[3];
+    }
+  }
+}
+
+// One head of 16 * nk16 columns (nk16 <= KT): S = q_h k_h^T in nk16 k16
+// steps of m16n8k16, then o_h = a v_h 16 columns at a time.  qa(kt, a)
+// writes q's A fragment of the head's columns 16 kt .. 16 kt + 15;
+// emit(j, o0, o1) takes the f32 output fragments of its columns 16 j .. +7
+// and 16 j + 8 .. + 15.  ks, vs: the head's first column.
+template <int KT, typename QA, typename Emit>
+__device__ __forceinline__ void etch_attention_head16(QA qa, const bf16* ks, const bf16* vs,
+                                                      int ld, int L, int nk16, Emit emit) {
+  const int lane = threadIdx.x & 31;
+  float s[8][4];
+#pragma unroll
+  for (int jt = 0; jt < 8; ++jt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[jt][e] = 0.f;
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt < nk16) {
+      uint32_t a[4];
+      qa(kt, a);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {   // keys 16 jj .. 16 jj + 15
+        uint32_t kb[4];
+        etch_ldsm_x4(kb, ks + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * ld + 16 * kt +
+                             ((lane >> 3) & 1) * 8);
+        etch_mma_16816(s[2 * jj], a, kb[0], kb[1]);
+        etch_mma_16816(s[2 * jj + 1], a, kb[2], kb[3]);
+      }
+    }
+  }
+  uint32_t p[4][4];
+  etch_softmax_frags(s, L, p);
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    if (j < nk16) {
+      float o0[4] = {0.f, 0.f, 0.f, 0.f}, o1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        uint32_t vb[4];
+        etch_ldsm_x4_trans(vb, vs + (16 * t + (lane & 15)) * ld + 16 * j + (lane >> 4) * 8);
+        etch_mma_16816(o0, p[t], vb[0], vb[1]);
+        etch_mma_16816(o1, p[t], vb[2], vb[3]);
+      }
+      emit(j, o0, o1);
+    }
+  }
+}
+
 // Raises a kernel's dynamic shared-memory limit above the 48 KB default.
 template <typename Kernel>
 static inline cudaError_t etch_allow_smem(Kernel kernel, size_t bytes) {

@@ -37,7 +37,8 @@
 //     m16k16 A layout), with bias, scale, residual, ReLU and the final wr
 //     dot applied in registers.  Only k and v, which every warp of the group
 //     reads, go to shared memory (2 x 64 x 72 bf16 per group).
-//   - Attention on the tensor cores, per head: S = q_h k_h^T is m16n8k8 at
+//   - Attention on the tensor cores, per head (common.cuh's per-head
+//     attention, shared with the anchor attention): S = q_h k_h^T is m16n8k8 at
 //     head size 8 (q_h is a register fragment, k from shared memory by
 //     ldmatrix); head sizes 1, 2 and 4 mask q to their head's columns of the
 //     8-column tile (exact: the other columns add zeros), 16 uses m16n8k16.
@@ -134,82 +135,36 @@ __device__ __forceinline__ void load_tokens(Frag (&x)[4], const bf16* __restrict
 template <int HS>
 __device__ __forceinline__ void attention(const Frag (&q)[4], const bf16* ks, const bf16* vs,
                                           int A, int E, Frag (&o)[4]) {
-  const int lane = threadIdx.x & 31;
   if constexpr (HS == 16) {
 #pragma unroll
     for (int hd = 0; hd < 4; ++hd) {   // head hd = k16 tile hd of q
-      float o0[4] = {0.f, 0.f, 0.f, 0.f}, o1[4] = {0.f, 0.f, 0.f, 0.f};
-      if (16 * hd < E) {
-        float s[8][4];
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {   // keys 16 jj .. 16 jj + 15
-          uint32_t kb[4];
-          etch_ldsm_x4(kb, ks + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * kLdE + 16 * hd +
-                               ((lane >> 3) & 1) * 8);
+      for (int e = 0; e < 4; ++e) o[hd][e] = 0u;
+      if (16 * hd < E)
+        etch_attention_head16<1>(
+            [&](int, uint32_t (&a)[4]) {
 #pragma unroll
-          for (int u = 0; u < 2; ++u) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[2 * jj + u][e] = 0.f;
-            etch_mma_16816(s[2 * jj + u], q[hd], kb[2 * u], kb[2 * u + 1]);
-          }
-        }
-        Frag p[4];
-        etch_softmax_frags(s, A, p);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          uint32_t vb[4];
-          etch_ldsm_x4_trans(vb, vs + (16 * t + (lane & 15)) * kLdE + 16 * hd + (lane >> 4) * 8);
-          etch_mma_16816(o0, p[t], vb[0], vb[1]);
-          etch_mma_16816(o1, p[t], vb[2], vb[3]);
-        }
-      }
-      o[hd][0] = etch_pack_bf16(o0[0], o0[1]);
-      o[hd][1] = etch_pack_bf16(o0[2], o0[3]);
-      o[hd][2] = etch_pack_bf16(o1[0], o1[1]);
-      o[hd][3] = etch_pack_bf16(o1[2], o1[3]);
+              for (int e = 0; e < 4; ++e) a[e] = q[hd][e];
+            },
+            ks + 16 * hd, vs + 16 * hd, kLdE, A, 1,
+            [&](int, const float (&o0)[4], const float (&o1)[4]) {
+              o[hd][0] = etch_pack_bf16(o0[0], o0[1]);
+              o[hd][1] = etch_pack_bf16(o0[2], o0[3]);
+              o[hd][2] = etch_pack_bf16(o1[0], o1[1]);
+              o[hd][3] = etch_pack_bf16(o1[2], o1[3]);
+            });
     }
   } else {
-    constexpr int kHeadsPerTile = 8 / HS;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {   // 8-column tile of q, k, v, o
       float ot[4] = {0.f, 0.f, 0.f, 0.f};
-      if (8 * nt < E) {
-        uint32_t kb[2][4], vb[2][4];   // keys 0-31 and 32-63
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          etch_ldsm_x4(kb[u], ks + (32 * u + lane) * kLdE + 8 * nt);
-          etch_ldsm_x4_trans(vb[u], vs + (32 * u + lane) * kLdE + 8 * nt);
-        }
-        const uint32_t qa0 = q[nt >> 1][2 * (nt & 1)], qa1 = q[nt >> 1][2 * (nt & 1) + 1];
-#pragma unroll
-        for (int hh = 0; hh < kHeadsPerTile; ++hh) {
-          // q restricted to this head's columns of the tile
-          const int t2 = 2 * (lane & 3);
-          const bool own0 = t2 / HS == hh, own1 = (t2 + 1) / HS == hh;
-          const uint32_t mask = (own0 ? 0x0000ffffu : 0u) | (own1 ? 0xffff0000u : 0u);
-          float s[8][4];
-#pragma unroll
-          for (int jt = 0; jt < 8; ++jt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[jt][e] = 0.f;
-            etch_mma_1688(s[jt], qa0 & mask, qa1 & mask, kb[jt >> 2][jt & 3]);
-          }
-          Frag p[4];
-          etch_softmax_frags(s, A, p);
-          float oh[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int t = 0; t < 4; ++t)
-            etch_mma_16816(oh, p[t], vb[t >> 1][2 * (t & 1)], vb[t >> 1][2 * (t & 1) + 1]);
-          if (own0) {
-            ot[0] = oh[0];
-            ot[2] = oh[2];
-          }
-          if (own1) {
-            ot[1] = oh[1];
-            ot[3] = oh[3];
-          }
-        }
-      }
+      if (8 * nt < E)
+        etch_attention_tile8<HS>(
+            [&](uint32_t& a0, uint32_t& a1) {
+              a0 = q[nt >> 1][2 * (nt & 1)];
+              a1 = q[nt >> 1][2 * (nt & 1) + 1];
+            },
+            ks + 8 * nt, vs + 8 * nt, kLdE, A, ot);
       o[nt >> 1][2 * (nt & 1)] = etch_pack_bf16(ot[0], ot[1]);
       o[nt >> 1][2 * (nt & 1) + 1] = etch_pack_bf16(ot[2], ot[3]);
     }

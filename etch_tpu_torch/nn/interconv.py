@@ -138,7 +138,10 @@ def _check_geometry(name, xyz, centers, nbr, rk):
 def interconv_t_cuda(xyz, centers, nbr, feats, rk, sigma: float, A: int):
     """f32 feature rows launch `interconv_t`, bf16 rows `interconv_t_bf16`,
     both on the tensor cores (3xTF32 products for f32 accuracy, bf16
-    products)."""
+    products).  Both take C <= 64 channels a row (f32: C % 4 == 0, bf16:
+    C % 8 == 0) and raise above: the FP32 body that the f32 route had before
+    its tensor-core body also took wider rows (up to C = 512 at K = 24), but
+    no configuration of the repository has one."""
     bf16 = feats.dtype == BF16
     name = "interconv_t_bf16" if bf16 else "interconv_t"
     device = _check_geometry(name, xyz, centers, nbr, rk)

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from etch_tpu_torch import _build
 from etch_tpu_torch.geometry.icosahedral import get_anchors
 from etch_tpu_torch.geometry.kernel_points import get_kernel_points
 from etch_tpu_torch.nn import attention, dircore, interconv
@@ -230,18 +231,13 @@ def test_interconv_tf32_geometry():
             interconv.check_tf32_geometry(nn, C)
 
 
-@pytest.mark.parametrize("E,H", [(24, 8), (24, 4), (12, 1), (48, 2), (40, 2)])
-def test_attention_padded_tiles_are_exact(E, H):
-    """Head sizes that are neither 1, 2, 4 nor a multiple of 8 or 16 (3, 6,
-    12, 24, 20 here) sit in the kernel's shared memory with each head padded
-    by zero columns to 8 or to a multiple of 16, and every point's keys are
-    padded to 64 rows masked to -inf.  In float64 the padded logits are the
-    head's own exactly, padded keys get weight exactly 0, the padded columns
-    of a v are exactly 0, and the emulated output (weights rounded to bf16)
-    matches attention_torch by the card's bf16 criterion."""
-    Bc, L, hs = 3, 60, E // H
+def _padded_attention_matches(Bc, L, E, H, seed):
+    """The anchor attention's padded layout in float64: each head padded by
+    zero columns to 8 or to a multiple of 16, the keys to 64 rows, those at
+    L..63 masked to -inf and their k and v rows zero."""
+    hs = E // H
     hp = 8 if hs <= 8 else -(-hs // 16) * 16
-    g = np.random.RandomState(E + H)
+    g = np.random.RandomState(seed)
     q, k, v = (rnd(torch.tensor(g.randn(Bc, L, E) * (hs ** -0.5 if i == 0 else 1.0),
                                 dtype=torch.float32)) for i in range(3))
 
@@ -267,3 +263,34 @@ def test_attention_padded_tiles_are_exact(E, H):
     err = (out - ref).abs()
     assert err.max() <= 1e-2 * ref.abs().max()
     assert (err / (ref.abs() + 1e-2)).median() <= 1e-3
+
+
+@pytest.mark.parametrize("E,H", [(24, 8), (24, 4), (12, 1), (48, 2), (40, 2)])
+def test_attention_padded_tiles_are_exact(E, H):
+    """Head sizes that are neither 1, 2, 4 nor a multiple of 8 or 16 (3, 6,
+    12, 24, 20 here) sit in the kernel's shared memory with each head padded
+    by zero columns to 8 or to a multiple of 16, and every point's keys are
+    padded to 64 rows masked to -inf.  In float64 the padded logits are the
+    head's own exactly, padded keys get weight exactly 0, the padded columns
+    of a v are exactly 0, and the emulated output (weights rounded to bf16)
+    matches attention_torch by the card's bf16 criterion."""
+    _padded_attention_matches(3, 60, E, H, E + H)
+
+
+@pytest.mark.parametrize("L", [1, 20, 64])
+@pytest.mark.parametrize("E,H", [(64, 8), (24, 4)])
+def test_attention_masked_keys_are_exact(L, E, H):
+    """The anchor counts the configuration allows besides 60: one key (the
+    other 7 of its 8-key tile and every later tile masked), 20 (the mask
+    starts inside an 8-key tile) and 64 (no padded key)."""
+    _padded_attention_matches(8, L, E, H, L + E + H)
+
+
+def test_launch_counts_are_keyed_by_shape():
+    """A launch's shape key is its entry point and its scalar arguments,
+    never a pointer, so that two launches at one shape share a count."""
+    args = (_build.ptr(torch.zeros(1)), 8, 5000, 1250, 3, 0.25)
+    assert _build.shape_key("etch_knn", args) == ("etch_knn", 8, 5000, 1250, 3, 0.25)
+    _build.shape_launches["knn"][_build.shape_key("etch_knn", args)] = 2
+    _build.reset_launch_counts()
+    assert _build.shape_launches["knn"] == {} and _build.launches["knn"] == 0

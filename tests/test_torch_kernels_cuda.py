@@ -245,6 +245,20 @@ def test_attention_kernel_head_sizes(cuda, M, hs, E):
     _close_bf16(out, attention.attention_torch(q, k, v, H))
 
 
+@pytest.mark.parametrize("L", [1, 20, 60, 64])
+@pytest.mark.parametrize("hs,E", [(2, 64), (3, 24), (8, 64), (16, 64)])
+def test_attention_kernel_key_counts(cuda, L, hs, E):
+    """Every key count the configuration allows (one anchor, 20, 60, and 64
+    with no padded key) on each route: masked keys start inside an 8-key
+    tile at L = 1 and 20, and the zero rows of k and v end where the masked
+    tiles do not."""
+    H = E // hs
+    q, k, v = _qkv(cuda, 133, L, E, H, seed=L + hs)
+    out = attention.attention_cuda(q, k, v, H)
+    assert out.shape == (133, L, E)
+    _close_bf16(out, attention.attention_torch(q, k, v, H))
+
+
 @torch.no_grad()
 def test_chunked_direction_head_launches_attention(cuda):
     """fused_core=False: two layers of bf16 tokens run the attention kernel
