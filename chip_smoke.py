@@ -81,6 +81,18 @@ INTERCONV_RTOL = 1e-5   # max |kernel - plain| <= 1e-5 * max |plain|
 PEAK_BYTES_S, PEAK_BF16_TENSOR, PEAK_TF32_TENSOR, PEAK_FP32 = 3.35e12, 989e12, 495e12, 67e12
 BF16_ATOL = 1e-2        # bf16 kernels: max |kernel - plain| <= 1e-2 * max |plain|
 BF16_MEDIAN_REL = 1e-3  # and median |kernel - plain| / (|plain| + 1e-2) <= 1e-3
+# Where bf16 rounding flips are so common that a change of summation order
+# alone misses that median criterion (the direction core at E = 256; a serving
+# step at full width, card against CPU, plain versions or kernels alike), the
+# result is held to be as accurate as its plain twin instead: its error
+# against the unrounded f32 function at most AS_ACCURATE (a kernel) or
+# AS_ACCURATE_STEP (a serving step) times the twin's, in the median and the
+# max.  Each limit sits between the ratios of the sound code and of planted
+# faults (tools/torch_accuracy_control.py, on an H100): the E = 256 core reads
+# 1.00 sound and 1.9-2.5 when 1% high; the epn_layer_num=4 bf16 step reads up
+# to 1.14 sound and 1.36-1.43 when one contraction slice drops a neighbour.
+AS_ACCURATE = 1.5
+AS_ACCURATE_STEP = 1.3
 # the kernels each serving path launches (and no others): f32, bf16 with the
 # fused direction core, bf16 with the chunked core (fused_core=False, or one
 # direction layer), and each with the 1-channel conv of C1_MLPS
@@ -156,6 +168,20 @@ def interconv_bound(B, P, c, nn, A, K, C, elem):
     return bound(bytes_, 3.0 * products, weights, PEAK_TF32_TENSOR)
 
 
+def wide_specs(n):
+    """The convs of EtchConfig(epn_layer_num=4) at N = n whose rows are
+    wider than 64 channels: 128 (conv5) and 256 (conv7), each block's
+    second conv (its centers are its input points)."""
+    from etch_tpu_torch.utils.config import EtchConfig, backbone_plan
+    plan = backbone_plan(EtchConfig(num_point=n, batch_size=B, epn_layer_num=4))
+    return [plan[2][1], plan[3][1]]
+
+
+def wide_points(torch, dev, spec):
+    """The spec's input points: a capsule cloud of its size."""
+    return torch.from_numpy(capsule_clouds(B, spec["n_in"], seed=spec["dim_in"])).to(dev)
+
+
 def chunks(n, size=512):
     """The chunk sizes of n centers streamed `size` at a time, as
     InterSO3Conv does: `size`, and the ragged last one where there is one."""
@@ -177,6 +203,68 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps):
+    """Mean device time of fn over `reps` calls captured in one CUDA graph and
+    replayed: the device's time without the host's launch overhead, which
+    holds the eager time of a short launch (the wrappers' Python)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    end.synchronize()
+    del g
+    return start.elapsed_time(end) / reps
+
+
+def median_rel(err, ref):
+    """Median of |err| / (|ref| + 1e-2), over a sample of at most 16 M values."""
+    rel = (err / (ref.abs() + 1e-2)).flatten()
+    return rel[::max(1, rel.numel() >> 24)].median().item()
+
+
+def as_accurate(out, twin, exact, limit=AS_ACCURATE):
+    """`out` (a kernel's or the card's bf16 result) and `twin` (its plain
+    twin's) against `exact`, the same function unrounded: out's (median
+    relative, max) error, twin's, and whether out's are within `limit`
+    times twin's in both."""
+    ek, et = (out - exact).abs(), (twin - exact).abs()
+    got = (median_rel(ek, exact), ek.max().item())
+    ref = (median_rel(et, exact), et.max().item())
+    return got, ref, got[0] <= limit * ref[0] and got[1] <= limit * ref[1]
+
+
+def bf16_step_accuracy(gpu, cpu, f32):
+    """A full-width bf16 serving step on the card (`gpu`) and on the CPU
+    (`cpu`), each against the same weights served in f32 on the CPU:
+    confidences and vector lengths (`as_accurate`, the CPU's step as the
+    twin) and the share of part labels off the f32 ones.  Returns the
+    report and whether the card's step is as accurate as the CPU's: within
+    AS_ACCURATE_STEP times its errors, and part labels off on at most
+    max(AS_ACCURATE_STEP times the CPU's share, 2%) of the points.  None of
+    these depends on the direction head (directions are unit vectors): its
+    core is judged by `as_accurate` in phase 3 and the card tests."""
+    report, ok = {}, True
+    for key, fn in (("confidences", lambda o: o["confidences"].float().cpu()),
+                    ("vector_length", lambda o: o["vectors"].float().cpu().norm(dim=-1))):
+        (gm, gx), (cm, cx), good = as_accurate(fn(gpu), fn(cpu), fn(f32), AS_ACCURATE_STEP)
+        report[key] = {"card_median_rel": gm, "card_max_abs": gx, "cpu_median_rel": cm,
+                       "cpu_max_abs": cx}
+        ok = ok and good
+    off = [(o["part_labels"].cpu() != f32["part_labels"]).float().mean().item()
+           for o in (gpu, cpu)]
+    report["part_labels_off_f32"] = {"card": off[0], "cpu": off[1]}
+    return report, ok and off[0] <= max(AS_ACCURATE_STEP * off[1], 0.02)
+
+
 def compare_kernels(torch, dev):
     """Phase 3: every kernel against its plain version at main-path shapes.
     Returns {kernel: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -196,20 +284,24 @@ def compare_kernels(torch, dev):
 
     results = {}
 
-    def record(kernel, shape, err, ms, plain_ms, bnd, library_ms=None):
-        """One shape's numbers, called just after the kernel's timed launches:
-        the shape's key is that of the kernel's latest launch."""
+    def record(kernel, shape, err, fn, reps, plain_ms, bnd, library_ms=None):
+        """One shape's numbers: fn's eager time over `reps` launches and its
+        time replayed from a CUDA graph (`graph_ms`), then the rest.  The
+        shape's key is that of the kernel's latest launch."""
+        ms = cuda_ms(torch, fn, reps)
+        key = _build.last_shape[kernel]
+        gms = graph_ms(torch, fn, reps)
         bound_ms, by = bnd
         lib = "" if library_ms is None else f"  library {library_ms:.3f} ms"
         print(f"  {kernel:19s} {shape:34s} max_abs_err {err:.3g}  kernel {ms:.3f} ms"
-              f"  plain {plain_ms:.3f} ms  bound {bound_ms:.4f} ms ({by}, "
+              f" (graph {gms:.4f})  plain {plain_ms:.3f} ms  bound {bound_ms:.4f} ms ({by}, "
               f"{100 * bound_ms / ms:.1f}% of it){lib}")
-        entry = {"shape": shape, "key": _build.last_shape[kernel], "ms": ms,
+        entry = {"shape": shape, "key": key, "ms": ms, "graph_ms": gms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
                  "max_abs_err": err}
         prev = results.get(kernel)
         if prev is None:
-            results[kernel] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            results[kernel] = {"max_abs_err": err, "ms": ms, "graph_ms": gms, "plain_ms": plain_ms,
                                "bound_ms": bound_ms, "bound_by": by,
                                "library_ms": library_ms, "shapes": [entry]}
         else:
@@ -228,10 +320,19 @@ def compare_kernels(torch, dev):
         if not torch.equal(out, ref):
             raise AssertionError(f"fps {n}->{m}: kernel and plain indices differ")
         record("fps", f"B={B} {n}->{m}", 0.0,
-               cuda_ms(torch, lambda: fp.fps_cuda(src, m), 5),
+               lambda: fp.fps_cuda(src, m), 5,
                cuda_ms(torch, lambda: fp.fps_torch(src, m), 1),
                bound(B * n * 12 + B * m * 4, 0.0, 10.0 * B * m * n))
         clouds[m] = gather_points(src, out).contiguous()
+    # repaired: a cloud past the register instance (the device-memory one)
+    big = torch.from_numpy(capsule_clouds(B, 20000, seed=2)).to(dev)
+    out = fp.fps_cuda(big, 2000)
+    if not torch.equal(out, fp.fps_torch(big, 2000)):
+        raise AssertionError("fps 20000->2000: kernel and plain indices differ")
+    record("fps", f"B={B} 20000->2000", 0.0, lambda: fp.fps_cuda(big, 2000), 3,
+           cuda_ms(torch, lambda: fp.fps_torch(big, 2000), 1),
+           bound(B * 20000 * 12 + B * 2000 * 4, 0.0, 10.0 * B * 2000 * 20000))
+    del big
 
     # kNN shapes of a request (k, queries, supports): each U-Net level's self
     # neighbours, the down neighbours of levels 1-4 and the up 3-NN of
@@ -252,7 +353,7 @@ def compare_kernels(torch, dev):
         if err != 0.0:
             raise AssertionError(f"knn {label}: squared distances differ by {err}")
         record("knn", f"B={B} {label}", err,
-               cuda_ms(torch, lambda: kn.knn_cuda(q, s, k), 5),
+               lambda: kn.knn_cuda(q, s, k), 5,
                cuda_ms(torch, lambda: kn.knn_torch(q, s, k), 2),
                bound(B * (Q + S) * 12 + B * Q * k * 8, 0.0, 8.0 * B * Q * S))
 
@@ -271,7 +372,7 @@ def compare_kernels(torch, dev):
             raise AssertionError(f"ball_query conv{i}: kernel and plain indices differ")
         Q, S = q.shape[1], s.shape[1]
         record("ball_query", f"B={B} {Q}x{S} r={r:.3f} ns={ns}", 0.0,
-               cuda_ms(torch, lambda: bq.ball_query_cuda(q, s, r, ns), 5),
+               lambda: bq.ball_query_cuda(q, s, r, ns), 5,
                cuda_ms(torch, lambda: bq.ball_query_torch(q, s, r, ns), 2),
                bound(B * (Q + S) * 12 + B * Q * ns * 4, 0.0, 8.0 * B * Q * S))
         nbrs.append(nbr)
@@ -289,22 +390,27 @@ def compare_kernels(torch, dev):
         if not err <= INTERCONV_RTOL * scale:
             raise AssertionError(f"{kernel} {label}: max abs err {err} > "
                                  f"{INTERCONV_RTOL} * {scale}")
-        record(kernel, label, err, cuda_ms(torch, fn, 5), cuda_ms(torch, plain_fn, 1), bnd)
+        record(kernel, label, err, fn, 5, cuda_ms(torch, plain_fn, 1), bnd)
 
-    def check_bf16(kernel, label, fn, plain_fn, bnd, library_fn=None):
+    def check_bf16(kernel, label, fn, plain_fn, bnd, library_fn=None, exact_fn=None):
         out, ref = fn().float(), plain_fn().float()
         err = (out - ref).abs()
         worst, scale = err.max().item(), ref.abs().max().item()
-        rel = (err / (ref.abs() + 1e-2)).flatten()
-        rel = rel[::max(1, rel.numel() >> 24)]      # a strided sample of <= 16 M values
-        med = rel.median().item()
-        del out, ref, err, rel
-        if not (worst <= BF16_ATOL * scale and med <= BF16_MEDIAN_REL):
-            raise AssertionError(f"{kernel} {label}: max abs err {worst} (limit "
-                                 f"{BF16_ATOL} * {scale}), median rel err {med}")
-        ms = cuda_ms(torch, fn, 5)
+        med = median_rel(err, ref)
+        if exact_fn is None:
+            if not (worst <= BF16_ATOL * scale and med <= BF16_MEDIAN_REL):
+                raise AssertionError(f"{kernel} {label}: max abs err {worst} (limit "
+                                     f"{BF16_ATOL} * {scale}), median rel err {med}")
+        else:   # as accurate as the plain twin, against the unrounded function
+            got, twin, ok = as_accurate(out, ref, exact_fn().float())
+            print(f"  {kernel} {label}: against the unrounded function median rel / max abs: "
+                  f"kernel {got[0]:.3g} / {got[1]:.3g}, plain {twin[0]:.3g} / {twin[1]:.3g}; "
+                  f"kernel against plain {med:.3g} / {worst:.3g}")
+            if not ok:
+                raise AssertionError(f"{kernel} {label}: less accurate than its plain twin")
+        del out, ref, err
         library_ms = None if library_fn is None else cuda_ms(torch, library_fn, 5)
-        record(kernel, label, worst, ms, cuda_ms(torch, plain_fn, 1), bnd, library_ms)
+        record(kernel, label, worst, fn, 5, cuda_ms(torch, plain_fn, 1), bnd, library_ms)
 
     # occupancy conv of conv0: the 512-center chunks of the 2500 FPS centers
     # and the ragged last one
@@ -339,6 +445,20 @@ def compare_kernels(torch, dev):
                   lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
                   lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
                   interconv_bound(B, P, c, nn, 60, 24, C, 4))
+        del feats
+    torch.cuda.empty_cache()
+    for spec in wide_specs(N):   # repaired: the 128- and 256-channel blocks
+        C, nn, c = spec["dim_in"], spec["n_neighbor"], min(512, spec["n_out"])
+        pts = wide_points(torch, dev, spec)
+        feats = torch.randn((B, spec["n_in"], 60 * C), device=dev, generator=gen)
+        nbr = bq.ball_query_cuda(pts[:, :c].contiguous(), pts, spec["radius"], nn)
+        ctr, rk, sg = pts[:, :c].contiguous(), rk_of(spec), spec["sigma"]
+        check("interconv_t", f"B={B} P={spec['n_in']} c={c} nn={nn} C={C} (layers 4)",
+              interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
+              interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
+              lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
+              lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
+              interconv_bound(B, spec["n_in"], c, nn, 60, 24, C, 4))
         del feats
     torch.cuda.empty_cache()
 
@@ -411,6 +531,18 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
                   lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
                   interconv_bound(B, P, c, nn, 60, 24, C, 2))
         del feats
+    for spec in wide_specs(N):   # repaired: the 128- and 256-channel blocks
+        C, nn, c = spec["dim_in"], spec["n_neighbor"], min(512, spec["n_out"])
+        pts = wide_points(torch, dev, spec)
+        feats = randn(B, spec["n_in"], 60 * C).to(bf)
+        ctr = pts[:, :c].contiguous()
+        nbr = ball_query(ctr, pts, spec["radius"], nn)
+        rk, sg = rk_of(spec), spec["sigma"]
+        check("interconv_t_bf16", f"B={B} P={spec['n_in']} c={c} nn={nn} C={C} (layers 4)",
+              lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
+              lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
+              interconv_bound(B, spec["n_in"], c, nn, 60, 24, C, 2))
+        del feats
     spec = specs[1]
     feats = randn(B, q2500.shape[1], 60).to(bf)
     ctr = q2500[:, :512].contiguous()
@@ -422,26 +554,31 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
           c1_bound(spec["n_neighbor"], 2))
     del feats
 
-    # direction core: every point's (60, 64) tokens, 8 heads, V=128
-    E, V, H = 64, 128, 8
-    params = {}
-    for l in (0, 1):
-        for nm in ("wq", "wk", "wv"):
-            params[f"{nm}{l}"] = randn(E, E, scale=E ** -0.5)
-    params.update(wc0=randn(E, E, scale=E ** -0.5), bc0=randn(E, scale=0.1),
-                  wc1=randn(E, V, scale=E ** -0.5), bc1=randn(V, scale=0.1),
-                  wm0=randn(V, V, scale=V ** -0.5), bm0=randn(V, scale=0.1),
-                  wm1=randn(V, V, scale=V ** -0.5), bm1=randn(V, scale=0.1),
-                  wr=randn(V, 1, scale=V ** -0.5), br=randn(1, scale=0.1))
-    tokens = randn(B * N, 60, E).to(bf)
-    M, A = B * N, 60
-    flop = 2.0 * M * A * (2 * 3 * E * E + E * E + E * V + 2 * V * V + V) + 4.0 * 2 * M * A * A * E
-    check("dircore", f"M={M} A={A} E={E} H={H} V={V}",
-          lambda: dircore.direction_core_cuda(tokens, params, H),
-          lambda: torch.cat([dircore.direction_core_torch(tokens[s:s + 2048], params, H)
-                             for s in range(0, B * N, 2048)]),
-          bound(M * A * E * 2 + M * A * 4, flop))
-    del tokens
+    # direction core: every point's (60, E) tokens, 8 heads, V=128: E = 64
+    # (the main path), then the repaired E = 128 and 256 (epn_layer_num 3, 4)
+    V, H = 128, 8
+    for E in (64, 128, 256):
+        params = {}
+        for l in (0, 1):
+            for nm in ("wq", "wk", "wv"):
+                params[f"{nm}{l}"] = randn(E, E, scale=E ** -0.5)
+        params.update(wc0=randn(E, E, scale=E ** -0.5), bc0=randn(E, scale=0.1),
+                      wc1=randn(E, V, scale=E ** -0.5), bc1=randn(V, scale=0.1),
+                      wm0=randn(V, V, scale=V ** -0.5), bm0=randn(V, scale=0.1),
+                      wm1=randn(V, V, scale=V ** -0.5), bm1=randn(V, scale=0.1),
+                      wr=randn(V, 1, scale=V ** -0.5), br=randn(1, scale=0.1))
+        tokens = randn(B * N, 60, E).to(bf)
+        M, A = B * N, 60
+        flop = (2.0 * M * A * (2 * 3 * E * E + E * E + E * V + 2 * V * V + V)
+                + 4.0 * 2 * M * A * A * E)
+        plain = (lambda t: torch.cat([dircore.direction_core_torch(t[s:s + 2048], params, H)
+                                      for s in range(0, B * N, 2048)]))
+        check("dircore", f"M={M} A={A} E={E} H={H} V={V}",
+              lambda: dircore.direction_core_cuda(tokens, params, H), lambda: plain(tokens),
+              bound(M * A * E * 2 + M * A * 4, flop),
+              exact_fn=(lambda: plain(tokens.float())) if E > 128 else None)
+        del tokens
+    E = 64
 
     # anchor attention of the chunked core: the 2048-point chunks of a
     # direction layer and its ragged last one, two layers, 8 heads (its
@@ -459,6 +596,18 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
               bound(3 * Bc * L * E * 2 + Bc * L * E * 4, 4.0 * Bc * L * L * E),
               library_fn=lambda: sdpa(qh, kh, vh, scale=1.0))
         del q, k, v, qh, kh, vh
+    # repaired: the chunked core's attention at E = 256 (two head groups)
+    E2, Bc = 256, 2048
+    hs2 = E2 // H
+    q, k, v = (randn(Bc, L, E2, scale=hs2 ** -0.5 if i == 0 else 1.0).to(bf) for i in range(3))
+    qh, kh, vh = (t.reshape(Bc, L, H, hs2).transpose(1, 2).reshape(Bc * H, L, hs2).contiguous()
+                  for t in (q, k, v))
+    check("attention", f"Bc={Bc} L={L} E={E2} H={H}",
+          lambda: attention.attention_cuda(q, k, v, H),
+          lambda: attention.attention_torch(q, k, v, H),
+          bound(3 * Bc * L * E2 * 2 + Bc * L * E2 * 4, 4.0 * Bc * L * L * E2),
+          library_fn=lambda: sdpa(qh, kh, vh, scale=1.0))
+    del q, k, v, qh, kh, vh
 
     # vector attention at each U-Net level's shape and width (magnitude
     # planes 64, 128, 256, 256, 512; confidence 128 at level 0)
@@ -500,12 +649,19 @@ SMALL_STEPS = (  # phase 4: (label, EtchConfig.tiny overrides, kernel set on the
     ("f32, 1-channel conv", dict(epn_mlps=C1_MLPS), "f32_c1"),
     ("bf16, 1-channel conv", dict(use_bfloat16=True, epn_mlps=C1_MLPS), "bf16_chunked_c1"),
 )
+DEEP_STEPS = (  # phase 4 at full width, EtchConfig(epn_layer_num=4) at N=1024, B=2: the
+    # 128- and 256-channel blocks (channel slices) and the E = 256 direction core
+    ("f32, epn_layer_num=4", dict(epn_layer_num=4), "f32"),
+    ("bf16, epn_layer_num=4", dict(epn_layer_num=4, use_bfloat16=True), "bf16"),
+)
 
 
-def small_step(torch, _build, label, overrides, path):
-    """Phase 4: the serving step at tiny widths (B=2, N=512), kernels on the
-    card against the same weights on the CPU (plain versions).  Returns the
-    card run's launch counts, which must be exactly the path's kernel set.
+def small_step(torch, _build, label, cfg, path, fused_core=True, full_width=False):
+    """Phase 4: the serving step of `cfg` (tiny widths at B=2, N=512, or the
+    deeper EPN schedules at full width), kernels on the card against the same
+    weights on the CPU (plain versions); `fused_core=False` takes the
+    chunked direction core.  Returns the card run's launch counts, which
+    must be exactly the path's kernel set.
 
     f32: equal part labels, confidences within 1e-4 * (1 + max), markers
     within 1e-3, vectors and inner points within 1e-4 * (1 + max) for 99% of
@@ -515,27 +671,40 @@ def small_step(torch, _build, label, overrides, path):
     flips travel through the network: part labels equal for 98% of the
     points, confidences and vector lengths (magnitude / 10, as directions
     are ill-conditioned) within a median relative error of 1e-2 and
-    2e-2 * (1 + max) for all, finite outputs."""
+    2e-2 * (1 + max) for all, finite outputs.  bf16 at `full_width`: there
+    the flips alone move the card's plain versions further from the CPU than
+    that, so the card's step is held to be as accurate as the CPU's against
+    the same weights served in f32 on the CPU: confidences and vector
+    lengths within AS_ACCURATE_STEP times the CPU bf16 step's error, median
+    relative and max, and part labels off the f32 ones on at most
+    max(AS_ACCURATE_STEP times the CPU's share, 2%) of the points."""
     from etch_tpu_torch.pipeline import build_pipeline
-    from etch_tpu_torch.utils.config import EtchConfig
 
-    cfg = EtchConfig.tiny(num_point=512, batch_size=2, **overrides)
-    pts = capsule_clouds(2, 512, seed=3)
+    def serve(config, device):
+        pipe = build_pipeline(config, MARKERSET, allow_synthetic_body=True, rng_seed=0,
+                              device=device)
+        pipe.model.direction_head.fused_core = fused_core
+        return pipe.run_batch(pts)
+
+    pts = capsule_clouds(cfg.batch_size, cfg.num_point, seed=3)
     _build.reset_launch_counts()
-    gpu = build_pipeline(cfg, MARKERSET, allow_synthetic_body=True, rng_seed=0,
-                         device="cuda").run_batch(pts)
+    gpu = serve(cfg, "cuda")
     torch.cuda.synchronize()
     launches = dict(_build.launches)
     ran = {k for k, v in launches.items() if v}
     if ran != set(PATH_KERNELS[path]):
         raise AssertionError(f"small reference {label}: kernels launched {sorted(ran)}, "
                              f"expected {sorted(PATH_KERNELS[path])}")
-    cpu = build_pipeline(cfg, MARKERSET, allow_synthetic_body=True, rng_seed=0,
-                         device="cpu").run_batch(pts)
+    cpu = serve(cfg, "cpu")
     for key in ("vectors", "inner_points", "confidences", "markers", "verts", "joints"):
         if not torch.isfinite(gpu[key]).all():
             raise AssertionError(f"small reference {label}: {key} not finite")
-    if cfg.use_bfloat16:
+    if cfg.use_bfloat16 and full_width:
+        report, ok = bf16_step_accuracy(gpu, cpu, serve(cfg.replace(use_bfloat16=False), "cpu"))
+        if not ok:
+            raise AssertionError(f"small reference {label}: less accurate than the CPU's "
+                                 f"bf16 step: {report}")
+    elif cfg.use_bfloat16:
         agree = (gpu["part_labels"].cpu() == cpu["part_labels"]).float().mean().item()
         report = {"part_label_agreement": agree}
         for key, a, b in (("confidences", gpu["confidences"].cpu(), cpu["confidences"]),
@@ -562,7 +731,8 @@ def small_step(torch, _build, label, overrides, path):
                 ok = report[key] <= (1e-3 if key == "markers" else bound)
             if not ok:
                 raise AssertionError(f"small reference {label}: {key} differs by {report[key]}")
-    print(f"small reference {label} (B=2, N=512, tiny widths), card vs CPU: "
+    print(f"small reference {label} (B={cfg.batch_size}, N={cfg.num_point}), card vs CPU"
+          f"{' (bf16 steps against the f32 one)' if cfg.use_bfloat16 and full_width else ''}: "
           f"{json.dumps(report)}; launches {json.dumps({k: v for k, v in launches.items() if v})}")
     return launches
 
@@ -688,9 +858,9 @@ def per_shape_launches(kernels, counted, counted_on):
     did not time."""
     for name, k in kernels.items():
         if name not in counted:   # the C == 1 body runs on no full-width path
-            k["gap_ms"] = None
+            k["gap_ms"] = k["graph_gap_ms"] = None
             for e in k["shapes"]:
-                e["launches_per_request"] = e["gap_ms"] = None
+                e["launches_per_request"] = e["gap_ms"] = e["graph_gap_ms"] = None
             continue
         untimed = set(counted[name]) - {e["key"] for e in k["shapes"]}
         if untimed:
@@ -699,9 +869,11 @@ def per_shape_launches(kernels, counted, counted_on):
         for e in k["shapes"]:
             e["launches_per_request"] = counted[name].get(e["key"], 0) / TIMED_REQUESTS
             e["gap_ms"] = e["launches_per_request"] * (e["ms"] - e["bound_ms"])
+            e["graph_gap_ms"] = e["launches_per_request"] * (e["graph_ms"] - e["bound_ms"])
             print(f"  {name:19s} {e['shape']:34s} x{e['launches_per_request']:g}/request "
-                  f"({counted_on[name]}), gap {e['gap_ms']:.3f} ms")
+                  f"({counted_on[name]}), gap {e['gap_ms']:.3f} ms (graph {e['graph_gap_ms']:.3f})")
         k["gap_ms"] = sum(e["gap_ms"] for e in k["shapes"])
+        k["graph_gap_ms"] = sum(e["graph_gap_ms"] for e in k["shapes"])
 
 
 def entry_point(torch, _build):
@@ -793,15 +965,20 @@ def main():
 
     # 4. small-input reference; the 1-channel body runs only here (one
     # request per step)
+    from etch_tpu_torch.utils.config import EtchConfig
     launches, per_request = {}, {}
     c1_steps = [s for s in SMALL_STEPS if s[2].endswith("_c1")]
     for label, overrides, path in SMALL_STEPS:
-        counts = small_step(torch, _build, label, overrides, path)
+        counts = small_step(torch, _build, label,
+                            EtchConfig.tiny(num_point=512, batch_size=2, **overrides), path)
         if path.endswith("_c1"):
             launches["interconv_t_c1"] = launches.get("interconv_t_c1", 0) + counts[
                 "interconv_t_c1"]
     per_request["interconv_t_c1"] = (launches["interconv_t_c1"] / len(c1_steps),
                                      "tiny 1-channel steps")
+    for label, overrides, path in DEEP_STEPS:
+        small_step(torch, _build, label, EtchConfig(num_point=1024, batch_size=2, **overrides),
+                   path, full_width=True)
 
     # 5. main paths at full width: bf16 (what bench.py times), bf16 with the
     # chunked direction core, then f32; each kernel's counts from the first

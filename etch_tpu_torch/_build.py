@@ -39,7 +39,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argument types (pointers and the stream as c_void_p: a bare
 # Python int would be passed as a 32-bit int and cut the pointer)
 _SIGNATURES = {
-    "etch_fps": (_P, _P, _I, _I, _I, _P),
+    "etch_fps": (_P, _P, _P, _I, _I, _I, _P),
     "etch_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "etch_ball_query": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
     "etch_interconv_t": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
@@ -50,8 +50,9 @@ _SIGNATURES = {
     "etch_interconv_ones_proj": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _F, _P),
     "etch_dircore": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "etch_dircore_wide": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "etch_vector_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _I, _P),
+                              _I, _I, _I, _P),
     "etch_grouped_head": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "etch_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "etch_interconv_t_c1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),

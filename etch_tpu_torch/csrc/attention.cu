@@ -41,8 +41,12 @@
 //     o_h = a v_h (m16n8k16 over the 64 keys, v by ldmatrix.trans).
 //   - o is staged per warp in shared memory and leaves as 16-byte streaming
 //     stores of whole rows (the f32 output is 40% of the bytes).
-// Shared memory per group: k and v, 2 x 64 x (E + 8) bf16, and the staged
-// output, 4 x 16 x (E + 8) f32: 36,864 bytes at E = 64, 73,728 a block.
+//   - Heads are independent, so a point's heads run in groups of at most
+//     128 layout columns on the grid's second axis (E = 256: two groups);
+//     each group's block holds only its columns of k, v and the output.
+// Shared memory per group: k and v, 2 x 64 x (gw + 8) bf16, and the staged
+// output, 4 x 16 x (gw + 8) f32, gw the group's columns: 36,864 bytes at
+// E = 64, 73,728 a block.
 #include "common.cuh"
 
 namespace {
@@ -57,6 +61,7 @@ constexpr int kThreads = 128 * kGroups;
 // loads and stores).
 struct Layout {
   int L, E, H, hs, hp, ep;
+  int gw;    // layout columns a head group: a multiple of hp, at most 128
   int ld;    // k, v row stride (bf16): an odd multiple of 8
   int ldo;   // staging row stride (f32): 8 mod 32
   int direct;
@@ -85,9 +90,9 @@ __device__ __forceinline__ void stage(float* st, int ldo, int col, const float (
   *reinterpret_cast<float2*>(st + (g + 8) * ldo + col + t2) = make_float2(o[2], o[3]);
 }
 
-// grid ceil(M / kGroups); block kThreads.  HT: the head size for 1, 2, 4
-// and 8 (8 also takes 3, 5, 6, 7 padded to 8), else a bound on the padded
-// head size hp (a multiple of 16).
+// grid (ceil(M / kGroups), head groups); block kThreads.  HT: the head
+// size for 1, 2, 4 and 8 (8 also takes 3, 5, 6, 7 padded to 8), else a bound
+// on the padded head size hp (a multiple of 16).
 template <int HT>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -102,19 +107,21 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* st = reinterpret_cast<float*>(reinterpret_cast<bf16*>(smem_raw) + kGroups * 2 * tile) +
               (group * 4 + warp) * 16 * ly.ldo;
   const size_t base = static_cast<size_t>(point) * ly.L * ly.E;
+  // this block's head group: layout columns c0 .. c0 + ew - 1, heads h0 ..
+  const int c0 = blockIdx.y * ly.gw, ew = min(ly.gw, ly.ep - c0), h0 = c0 / ly.hp;
 
   const int tid = threadIdx.x & 127;
   if (ly.direct) {
-    const int nq = ly.E / 8;   // 16-byte pieces of a row
+    const int nq = ew / 8;   // 16-byte pieces of a row
     for (int e = tid; e < ly.L * nq; e += 128) {
       const int r = e / nq, c8 = 8 * (e % nq);
-      etch_cp_async16(ks + r * ly.ld + c8, k + base + r * ly.E + c8);
-      etch_cp_async16(vs + r * ly.ld + c8, v + base + r * ly.E + c8);
+      etch_cp_async16(ks + r * ly.ld + c8, k + base + r * ly.E + c0 + c8);
+      etch_cp_async16(vs + r * ly.ld + c8, v + base + r * ly.E + c0 + c8);
     }
     etch_cp_async_commit();
     // padded keys are masked to -inf, but their v rows meet a = 0 and must
     // be finite
-    const int half = ly.ep / 2;
+    const int half = ew / 2;
     for (int e = tid; e < (kRows - ly.L) * half; e += 128) {
       const int r = ly.L + e / half, c2 = 2 * (e % half);
       *reinterpret_cast<uint32_t*>(ks + r * ly.ld + c2) = 0u;
@@ -123,8 +130,8 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     etch_cp_async_wait<0>();
   } else {
     const bf16 zero = __float2bfloat16(0.f);
-    for (int e = tid; e < kRows * ly.ep; e += 128) {
-      const int r = e / ly.ep, col = e % ly.ep, h = col / ly.hp, d = col % ly.hp;
+    for (int e = tid; e < kRows * ew; e += 128) {
+      const int r = e / ew, col = e % ew, h = (c0 + col) / ly.hp, d = (c0 + col) % ly.hp;
       const bool in = r < ly.L && h < ly.H && d < ly.hs;
       const size_t src = base + r * ly.E + h * ly.hs + d;
       ks[r * ly.ld + col] = in ? k[src] : zero;
@@ -136,31 +143,30 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qp = q + base;
   const int r0 = 16 * warp, g = lane >> 2, t2 = 2 * (lane & 3);
   if constexpr (HT <= 8) {
-    for (int nt = 0; nt < ly.ep / 8; ++nt) {   // 8-column tile of q, k, v, o
+    for (int nt = 0; nt < ew / 8; ++nt) {   // 8-column tile of q, k, v, o
       float ot[4];
       etch_attention_tile8<HT>(
           [&](uint32_t& a0, uint32_t& a1) {
-            a0 = q_pair(qp, ly, r0 + g, 8 * nt + t2);
-            a1 = q_pair(qp, ly, r0 + g + 8, 8 * nt + t2);
+            a0 = q_pair(qp, ly, r0 + g, c0 + 8 * nt + t2);
+            a1 = q_pair(qp, ly, r0 + g + 8, c0 + 8 * nt + t2);
           },
           ks + 8 * nt, vs + 8 * nt, ly.ld, ly.L, ot);
       stage(st, ly.ldo, 8 * nt, ot);
     }
   } else {
-    for (int h = 0; h < ly.H; ++h) {
-      const int c0 = h * ly.hp;
+    for (int hc = 0; hc < ew; hc += ly.hp) {   // the group's heads, at columns hc
       etch_attention_head16<HT / 16>(
           [&](int kt, uint32_t (&a)[4]) {   // 16 columns of the head at a time
-            const int c = c0 + 16 * kt + t2;
+            const int c = c0 + hc + 16 * kt + t2;
             a[0] = q_pair(qp, ly, r0 + g, c);
             a[1] = q_pair(qp, ly, r0 + g + 8, c);
             a[2] = q_pair(qp, ly, r0 + g, c + 8);
             a[3] = q_pair(qp, ly, r0 + g + 8, c + 8);
           },
-          ks + c0, vs + c0, ly.ld, ly.L, ly.hp / 16,
+          ks + hc, vs + hc, ly.ld, ly.L, ly.hp / 16,
           [&](int j, const float (&o0)[4], const float (&o1)[4]) {
-            stage(st, ly.ldo, c0 + 16 * j, o0);
-            stage(st, ly.ldo, c0 + 16 * j + 8, o1);
+            stage(st, ly.ldo, hc + 16 * j, o0);
+            stage(st, ly.ldo, hc + 16 * j + 8, o1);
           });
     }
   }
@@ -170,16 +176,17 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int rows = min(16, ly.L - r0);
   float* op = out + base + static_cast<size_t>(r0) * ly.E;
   if (ly.direct) {
-    const int nq = ly.E / 4;
+    const int nq = ew / 4;
     for (int e = lane; e < rows * nq; e += 32) {
       const int r = e / nq, c4 = 4 * (e % nq);
-      __stcs(reinterpret_cast<float4*>(op + r * ly.E + c4),
+      __stcs(reinterpret_cast<float4*>(op + r * ly.E + c0 + c4),
              *reinterpret_cast<const float4*>(st + r * ly.ldo + c4));
     }
-  } else {
-    for (int e = lane; e < rows * ly.E; e += 32) {
-      const int r = e / ly.E, col = e % ly.E;
-      op[r * ly.E + col] = st[r * ly.ldo + (col / ly.hs) * ly.hp + col % ly.hs];
+  } else {   // the group's heads' own columns
+    const int e0 = h0 * ly.hs, ec = min(ly.E - e0, (ew / ly.hp) * ly.hs);
+    for (int e = lane; e < rows * ec; e += 32) {
+      const int r = e / ec, col = e % ec;
+      op[r * ly.E + e0 + col] = st[r * ly.ldo + (col / ly.hs) * ly.hp + col % ly.hs];
     }
   }
 }
@@ -191,18 +198,18 @@ int launch(const bf16* q, const bf16* k, const bf16* v, float* out, int M, const
                                  4 * 16 * static_cast<size_t>(ly.ldo) * sizeof(float));
   cudaError_t err = etch_allow_smem(attention_kernel<HT>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_kernel<HT><<<(M + kGroups - 1) / kGroups, kThreads, smem, stream>>>(q, k, v, out, M,
-                                                                                 ly);
+  const dim3 grid((M + kGroups - 1) / kGroups, (ly.ep + ly.gw - 1) / ly.gw);
+  attention_kernel<HT><<<grid, kThreads, smem, stream>>>(q, k, v, out, M, ly);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v (M, L, E) bf16 -> out (M, L, E) f32.  L <= 64, E <= 128 and H
-// divides E.
+// q, k, v (M, L, E) bf16 -> out (M, L, E) f32.  L <= 64, H divides E and
+// the head size is at most 128.
 ETCH_API int etch_attention(const void* q, const void* k, const void* v, float* out, int M,
                             int L, int E, int H, cudaStream_t stream) {
-  if (L < 1 || L > kRows || H < 1 || E % H != 0 || E > 128)
+  if (L < 1 || L > kRows || H < 1 || E % H != 0 || E / H > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   Layout ly;
   ly.L = L;
@@ -223,8 +230,9 @@ ETCH_API int etch_attention(const void* q, const void* k, const void* v, float* 
     ly.ep = H * ly.hp;
   }
   ly.direct = ly.hp == hs && E % 8 == 0;
-  ly.ld = round_up(ly.ep, 16) + 8;
-  ly.ldo = round_up(ly.ep, 32) + 8;
+  ly.gw = ly.ep <= 128 ? ly.ep : 128 / ly.hp * ly.hp;
+  ly.ld = round_up(ly.gw, 16) + 8;
+  ly.ldo = round_up(ly.gw, 32) + 8;
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);

@@ -57,6 +57,8 @@
 // Widths are compiled in: tokens padded to 64 rows (A <= 64), E = 64 and
 // V = 128 (the wrapper zero-pads narrower weights, which is exact: padded
 // columns stay zero through every layer and their attention returns zero).
+// Wider tokens, whose weights do not fit shared memory, run
+// csrc/dircore_wide.cu.
 #include "common.cuh"
 
 namespace {

@@ -5,98 +5,176 @@
 // steps lowers the running min squared distance to the last pick and picks
 // its argmax, the smaller index winning ties.
 //
-// Bound on the H100: latency, not bandwidth or FLOPs.  The m steps are
-// sequential and each ends in a block-wide argmax, so a step costs two
-// barriers plus N/blockDim distance updates; only B blocks exist (one per
-// cloud), so most SMs idle.  Design: the cloud and its running min distance
-// live in shared memory for the whole run (4 floats a point: 80 KB at
-// N=5000), so no step touches device memory except to write its pick; the
-// argmax is a warp-shuffle reduction followed by one 32-entry pass.
+// Bound on the H100: the chain of m - 1 dependent steps, not bytes or
+// FLOPs (5000 -> 2500 at B = 8 is 0.2 GFLOP and 0.5 MB).  A step's latency is
+// what counts: its distance updates, the argmax across the block and the
+// broadcast of the pick.  Design (fps_reg_kernel, N up to kRegPoints):
+//   - A block has at most kThreads = 512 threads (16 warps; 256 and 1024
+//     threads were no faster on the H100).
+//   - Each thread keeps its PPT points (j = tid + threads * i) and their
+//     running minimum in registers for the whole run; the cloud also sits in
+//     shared memory (12 B a point), read only to fetch the pick's
+//     coordinates.  Points past N get a running minimum of 0 and an index
+//     past N, so they lose every comparison with a real point.
+//   - The argmax keys are the running minima's bits: non-negative f32 values
+//     order as their uint32 bits.  A warp takes __reduce_max_sync of the
+//     bits, then __reduce_min_sync of the index over the lanes that hold the
+//     maximum, so the smaller index wins ties, as _fps_xla requires.
+//   - One barrier a step: each warp writes its (key, index) to the step's
+//     parity slot; after the barrier every warp reduces the (at most 32)
+//     slots itself, so there is no second barrier and no broadcast slot.  A
+//     slot is rewritten two steps later, after the next barrier, which every
+//     warp passes only once it has read it.
+//   - The distance is (dx dx + dy dy) + dz dz with one rounding an op
+//     (etch_sqdist), as fps_torch computes it, so the indices are equal.
+// Above the register capacity (fps_mem_kernel, any N) the cloud and the
+// running minimum live in a float4 scratch in device memory (16 B a point,
+// held by the L2) and stream through every step; the argmax is the same.
 #include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ void argmax_merge(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
+constexpr int kThreads = 512;      // the most threads a block
+constexpr int kRegPoints = 8192;   // the register instance's most points: 16 a thread
+constexpr int kNoIndex = 0x7fffffff;
+
+// Block-wide argmax of (key, index): the warp's reduction, one barrier, then
+// every warp reduces the slots of step `step` itself.
+__device__ __forceinline__ int block_argmax(uint32_t key, int idx, uint32_t (*skey)[32],
+                                            int (*sidx)[32], int step) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const uint32_t wmax = __reduce_max_sync(0xffffffffu, key);
+  const int widx = __reduce_min_sync(0xffffffffu, key == wmax ? idx : kNoIndex);
+  const int par = step & 1;
+  if (lane == 0) {
+    skey[par][warp] = wmax;
+    sidx[par][warp] = widx;
   }
+  __syncthreads();
+  const uint32_t k2 = lane < nw ? skey[par][lane] : 0u;
+  const int i2 = lane < nw ? sidx[par][lane] : kNoIndex;
+  const uint32_t bmax = __reduce_max_sync(0xffffffffu, k2);
+  return __reduce_min_sync(0xffffffffu, k2 == bmax ? i2 : kNoIndex);
 }
 
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    argmax_merge(v, i, ov, oi);
-  }
-}
-
-__global__ void fps_kernel(const float* __restrict__ xyz, int32_t* __restrict__ out,
-                           int n, int m) {
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + n;
-  float* sz = sy + n;
-  float* mind = sz + n;
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
-  __shared__ int s_pick;
-
+// grid (b); block `threads` <= kThreads, a multiple of 32, with PPT *
+// threads >= n.  512 threads leave 128 registers a thread, room for 16 points.
+template <int PPT>
+__global__ void __launch_bounds__(kThreads)
+fps_reg_kernel(const float* __restrict__ xyz, int32_t* __restrict__ out, int n, int m) {
+  extern __shared__ float cloud[];   // 3 n
+  __shared__ uint32_t skey[2][32];
+  __shared__ int sidx[2][32];
   const float* p = xyz + static_cast<size_t>(blockIdx.x) * n * 3;
   int32_t* o = out + static_cast<size_t>(blockIdx.x) * m;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    sx[j] = p[3 * j];
-    sy[j] = p[3 * j + 1];
-    sz[j] = p[3 * j + 2];
-    mind[j] = INFINITY;
+  const int T = blockDim.x, tid = threadIdx.x;
+  for (int e = tid; e < 3 * n; e += T) cloud[e] = p[e];
+  float x[PPT], y[PPT], z[PPT], md[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    const int j = tid + T * i;
+    const bool in = j < n;
+    x[i] = in ? p[3 * j] : 0.f;
+    y[i] = in ? p[3 * j + 1] : 0.f;
+    z[i] = in ? p[3 * j + 2] : 0.f;
+    md[i] = in ? INFINITY : 0.f;
   }
-  if (threadIdx.x == 0) o[0] = 0;
+  if (tid == 0) o[0] = 0;
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
   int last = 0;
-  for (int i = 1; i < m; ++i) {
-    const float cx = sx[last], cy = sy[last], cz = sz[last];
-    float bv = -INFINITY;
-    int bi = 0x7fffffff;
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      const float md = fminf(mind[j], etch_sqdist(sx[j] - cx, sy[j] - cy, sz[j] - cz));
-      mind[j] = md;
-      argmax_merge(bv, bi, md, j);
-    }
-    warp_argmax(bv, bi);
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < nwarps ? red_v[lane] : -INFINITY;
-      bi = lane < nwarps ? red_i[lane] : 0x7fffffff;
-      warp_argmax(bv, bi);
-      if (lane == 0) {
-        s_pick = bi;
-        o[i] = bi;
+  for (int s = 1; s < m; ++s) {
+    const float cx = cloud[3 * last], cy = cloud[3 * last + 1], cz = cloud[3 * last + 2];
+    uint32_t bk = 0;
+    int bj = tid;
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      md[i] = fminf(md[i], etch_sqdist(x[i] - cx, y[i] - cy, z[i] - cz));
+      const uint32_t key = __float_as_uint(md[i]);
+      if (i == 0 || key > bk) {   // strict: the smaller index keeps a tie
+        bk = key;
+        bj = tid + T * i;
       }
     }
-    __syncthreads();
-    last = s_pick;
+    last = block_argmax(bk, bj, skey, sidx, s);
+    if (tid == 0) o[s] = last;
   }
+}
+
+// grid (b); block kThreads.  scratch (b, n) float4: x, y, z, running min.
+__global__ void __launch_bounds__(kThreads)
+fps_mem_kernel(const float* __restrict__ xyz, float4* __restrict__ scratch,
+               int32_t* __restrict__ out, int n, int m) {
+  __shared__ uint32_t skey[2][32];
+  __shared__ int sidx[2][32];
+  const float* p = xyz + static_cast<size_t>(blockIdx.x) * n * 3;
+  float4* sc = scratch + static_cast<size_t>(blockIdx.x) * n;
+  int32_t* o = out + static_cast<size_t>(blockIdx.x) * m;
+  const int T = blockDim.x, tid = threadIdx.x;
+  for (int j = tid; j < n; j += T) sc[j] = make_float4(p[3 * j], p[3 * j + 1], p[3 * j + 2], INFINITY);
+  if (tid == 0) o[0] = 0;
+  __syncthreads();
+
+  int last = 0;
+  for (int s = 1; s < m; ++s) {
+    const float cx = __ldg(p + 3 * last), cy = __ldg(p + 3 * last + 1), cz = __ldg(p + 3 * last + 2);
+    uint32_t bk = 0;
+    int bj = kNoIndex;
+    for (int j = tid; j < n; j += T) {
+      const float4 q = sc[j];
+      const float d = fminf(q.w, etch_sqdist(q.x - cx, q.y - cy, q.z - cz));
+      if (d < q.w) sc[j].w = d;
+      const uint32_t key = __float_as_uint(d);
+      if (bj == kNoIndex || key > bk) {
+        bk = key;
+        bj = j;
+      }
+    }
+    last = block_argmax(bk, bj, skey, sidx, s);
+    if (tid == 0) o[s] = last;
+  }
+}
+
+// Points a thread of the register instance for n points; 0 above
+// kRegPoints, the device-memory instance's.
+int points_per_thread(int n) {
+  static const int kPpt[] = {1, 2, 4, 6, 8, 10, 12, 16};
+  for (int ppt : kPpt)
+    if (ppt * kThreads >= n) return ppt;
+  return 0;
+}
+
+template <int PPT>
+int launch_reg(const float* xyz, int32_t* out, int b, int n, int m, int threads,
+               cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(3) * n * sizeof(float);
+  cudaError_t err = etch_allow_smem(fps_reg_kernel<PPT>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fps_reg_kernel<PPT><<<b, threads, smem, stream>>>(xyz, out, n, m);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// xyz (b, n, 3) f32 contiguous -> out (b, m) i32.  Returns cudaGetLastError().
-ETCH_API int etch_fps(const float* xyz, int32_t* out, int b, int n, int m,
+// xyz (b, n, 3) f32 contiguous -> out (b, m) i32.  scratch (b, n) float4 is
+// used, and must be given, only for n > 8192 points.  Returns
+// cudaGetLastError().
+ETCH_API int etch_fps(const float* xyz, int32_t* out, void* scratch, int b, int n, int m,
                       cudaStream_t stream) {
-  int threads = ((n + 31) / 32) * 32;
-  threads = threads > 1024 ? 1024 : threads;
-  const size_t smem = static_cast<size_t>(4) * n * sizeof(float);
-  cudaError_t err = etch_allow_smem(fps_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fps_kernel<<<b, threads, smem, stream>>>(xyz, out, n, m);
-  return static_cast<int>(cudaGetLastError());
+  const int ppt = points_per_thread(n);
+  if (ppt == 0) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    fps_mem_kernel<<<b, kThreads, 0, stream>>>(xyz, static_cast<float4*>(scratch), out, n, m);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // the fewest whole warps that hold n points at ppt a thread
+  const int threads = ((n + ppt - 1) / ppt + 31) / 32 * 32;
+  switch (ppt) {
+#define ETCH_CASE(k) \
+  case k: return launch_reg<k>(xyz, out, b, n, m, threads, stream);
+    ETCH_CASE(1) ETCH_CASE(2) ETCH_CASE(4) ETCH_CASE(6) ETCH_CASE(8) ETCH_CASE(10) ETCH_CASE(12)
+    ETCH_CASE(16)
+#undef ETCH_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -106,6 +106,17 @@
 // gather and the stores each cost less, and no one unit holds the kernel:
 // the FP32 weights and the latency of its dependent chains do.
 //
+// Rows wider than 64 channels (the 128- and 256-channel blocks of
+// epn_layer_num 3 and 4) run in both bodies as channel slices of 64 on the
+// grid's third axis of one launch (launch_slices): t[p, a, k, c] is
+// independent per channel, so a slice gathers its 64-channel segment of every
+// row (the row's full width Cw is the stride) and writes its segment of t.
+// When 64 does not divide Cw the last slice ends at the row's end and
+// overlaps the one before it, whose channels it computes again and writes
+// with the same values; segments start on 16-byte boundaries, as Cw % 8 == 0
+// (bf16) and Cw % 4 == 0 (f32) put them.  Each slice evaluates the weights
+// again; the instances and their speed at C <= 64 are those above.
+//
 // The fused occupancy projection is bound by the weight evaluation, as the
 // plain occupancy kernel is (nn*A*K = 92 K weights per center); its
 // projection adds A*K*Co = 46 K FMAs per center out of shared memory and
@@ -127,6 +138,14 @@ constexpr int kKp = 32;       // kernel points padded to two m16 tiles
 constexpr int kChunk = 32;    // neighbours per gathered tile of the f32 body
 constexpr int kKb = 24;       // kernel points per block of the f32 body: 3 n8 tiles
 constexpr float kFar = 1e3f;  // a coordinate no kernel point reaches: w = 0
+constexpr int kSlice = 64;    // channels a block of the bf16 and f32 bodies at most
+
+// First channel of slice blockIdx.z of C channels in a row of Cw: C z, but
+// the last slice ends at the row's end (Cw - C) when C does not divide Cw,
+// overlapping its neighbour, whose channels it writes again with equal values.
+__device__ __forceinline__ int slice_start(int C, int Cw) {
+  return min(C * static_cast<int>(blockIdx.z), Cw - C);
+}
 
 __device__ __forceinline__ void load_offsets(const float* __restrict__ xyz,
                                              const float* __restrict__ ctr,
@@ -163,16 +182,17 @@ __device__ __forceinline__ float mma_weight(float4 o, const float (&r)[3], float
   return __saturatef(1.f - fmaf(fmaf(-q1, sigma, d2), rs, q1));   // q >= 0: 1 - q <= 1
 }
 
-// grid (c, B); block kMmaWarps * 32.  bf16 rows, C = 8 * NT, K <= kKp.
+// grid (c, B, slices); block kMmaWarps * 32.  bf16 rows of Cw channels an
+// anchor; block z takes the C = 8 * NT channels from slice_start(z); K <= kKp.
 template <int NT>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 interconv_mma_kernel(const float* __restrict__ xyz,      // (B, P, 3)
                      const float* __restrict__ centers,  // (B, c, 3)
                      const int32_t* __restrict__ nbr,    // (B, c, nn)
-                     const bf16* __restrict__ feats,     // (B, P, A*C)
+                     const bf16* __restrict__ feats,     // (B, P, A*Cw)
                      const float* __restrict__ rk,       // (A*K, 3)
-                     bf16* __restrict__ out,             // (B, c, A, K, C)
-                     int P, int c, int nn, int A, int K, float sigma) {
+                     bf16* __restrict__ out,             // (B, c, A, K, Cw)
+                     int P, int c, int nn, int A, int K, int Cw, float sigma) {
   constexpr int C = 8 * NT;
   constexpr int kLdF = C + 8;               // feature and staging row stride
   const int np = mma_nn_pad(nn);
@@ -207,13 +227,14 @@ interconv_mma_kernel(const float* __restrict__ xyz,      // (B, P, 3)
   }
   __syncthreads();  // offsets and indices ready; from here each warp is on its own
 
-  const size_t AC = static_cast<size_t>(A) * C;
-  const bf16* fb = feats + static_cast<size_t>(b) * P * AC;
+  const size_t AC = static_cast<size_t>(A) * Cw;
+  const int cz = slice_start(C, Cw);
+  const bf16* fb = feats + static_cast<size_t>(b) * P * AC + cz;
   auto gather = [&](int a, bf16* dst) {
     for (int e = lane; e < nn * NT; e += 32) {
       const int n = e / NT, ch = e % NT;
       etch_cp_async16(dst + n * kLdF + ch * 8,
-                      fb + static_cast<size_t>(sidx[n]) * AC + static_cast<size_t>(a) * C + ch * 8);
+                      fb + static_cast<size_t>(sidx[n]) * AC + static_cast<size_t>(a) * Cw + ch * 8);
     }
   };
   const int g = lane >> 2, t2 = 2 * (lane & 3);   // fragment row and column pair
@@ -285,9 +306,10 @@ interconv_mma_kernel(const float* __restrict__ xyz,      // (B, P, 3)
                 etch_pack_bf16(acc[m][j][2 * h], acc[m][j][2 * h + 1]);
         }
     __syncwarp();
-    int4* op = reinterpret_cast<int4*>(out + (bp * A + a) * static_cast<size_t>(K) * C);
+    bf16* ob = out + (bp * A + a) * static_cast<size_t>(K) * Cw + cz;
     for (int e = lane; e < K * NT; e += 32)
-      __stcs(op + e, *reinterpret_cast<const int4*>(fcur + (e / NT) * kLdF + (e % NT) * 8));
+      __stcs(reinterpret_cast<int4*>(ob + (e / NT) * Cw + (e % NT) * 8),
+             *reinterpret_cast<const int4*>(fcur + (e / NT) * kLdF + (e % NT) * 8));
     __syncwarp();  // staging read before the tile takes the gather after next
   }
 }
@@ -321,16 +343,18 @@ __device__ __forceinline__ void sts_vec(float* p, const float* v) {
   }
 }
 
-// grid (c, B); block kMmaWarps * 32.  f32 rows, C % 4 == 0, C <= 16 * MT.
+// grid (c, B, slices); block kMmaWarps * 32.  f32 rows of Cw channels an
+// anchor; block z takes the C channels from slice_start(z), C % 4 == 0,
+// C <= 16 * MT.
 template <int MT>
 __global__ void __launch_bounds__(kMmaWarps * 32, MT <= 2 ? 5 : 3)
 interconv_tf32_kernel(const float* __restrict__ xyz,      // (B, P, 3)
                       const float* __restrict__ centers,  // (B, c, 3)
                       const int32_t* __restrict__ nbr,    // (B, c, nn)
-                      const float* __restrict__ feats,    // (B, P, A*C)
+                      const float* __restrict__ feats,    // (B, P, A*Cw)
                       const float* __restrict__ rk,       // (A*K, 3)
-                      float* __restrict__ out,            // (B, c, A, K, C)
-                      int P, int c, int nn, int A, int K, int C, float sigma) {
+                      float* __restrict__ out,            // (B, c, A, K, Cw)
+                      int P, int c, int nn, int A, int K, int C, int Cw, float sigma) {
   constexpr int kLd = tf32_ld(MT);
   constexpr int kTile = kChunk * kLd;
   const int nc = (nn + kChunk - 1) / kChunk;   // neighbour chunks
@@ -362,8 +386,9 @@ interconv_tf32_kernel(const float* __restrict__ xyz,      // (B, P, 3)
     reinterpret_cast<float4*>(ring)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();  // offsets and indices ready; from here each warp is on its own
 
-  const size_t AC = static_cast<size_t>(A) * C;
-  const float* fb = feats + static_cast<size_t>(b) * P * AC;
+  const size_t AC = static_cast<size_t>(A) * Cw;
+  const int cz = slice_start(C, Cw);
+  const float* fb = feats + static_cast<size_t>(b) * P * AC + cz;
   // 16-byte pieces: a lane copies piece pq of rows pr, pr + kRowsPer, ...
   // (compile-time divisors; pieces past C / 4 are skipped)
   constexpr int kPieces = 4 * MT, kRowsPer = 32 / kPieces;
@@ -371,7 +396,7 @@ interconv_tf32_kernel(const float* __restrict__ xyz,      // (B, P, 3)
   const bool copies = pr < kRowsPer && pq < nq;
   auto gather = [&](int a, int n0, float* dst) {
     const int rows = min(kChunk, nn - n0);
-    const float* src = fb + static_cast<size_t>(a) * C + 4 * pq;
+    const float* src = fb + static_cast<size_t>(a) * Cw + 4 * pq;
     if (copies)
       for (int r = pr; r < rows; r += kRowsPer)
         etch_cp_async16(dst + r * kLd + 4 * pq, src + static_cast<size_t>(sidx[n0 + r]) * AC);
@@ -476,10 +501,11 @@ interconv_tf32_kernel(const float* __restrict__ xyz,      // (B, P, 3)
         }
       __syncwarp();
       const size_t row0 = (bp * A + a) * K + k0;
-      float4* op = reinterpret_cast<float4*>(out + row0 * C) + pq;
+      float* ob = out + row0 * Cw + cz + 4 * pq;
       if (copies)
         for (int k = pr; k < kn; k += kRowsPer)
-          __stcs(op + k * nq, *reinterpret_cast<const float4*>(cur + k * kLd + 4 * pq));
+          __stcs(reinterpret_cast<float4*>(ob + k * Cw),
+                 *reinterpret_cast<const float4*>(cur + k * kLd + 4 * pq));
       __syncwarp();  // staging read before the tile takes the gather after next
     }
     a = a1, k0 = k1, n0 = n1;
@@ -597,71 +623,84 @@ int launch_interconv_c1(const float* xyz, const float* centers, const int32_t* n
 template <int NT>
 int launch_interconv_mma(const float* xyz, const float* centers, const int32_t* nbr,
                          const void* feats, const float* rk, void* out, int b, int P, int c,
-                         int nn, int A, int K, float sigma, cudaStream_t stream) {
+                         int nn, int A, int K, int Cw, int slices, float sigma,
+                         cudaStream_t stream) {
   const int np = mma_nn_pad(nn);
   const size_t smem = static_cast<size_t>(np) * 20 +
                       static_cast<size_t>(kMmaWarps) * 2 * mma_tile_rows(np, K) *
                           (8 * NT + 8) * sizeof(bf16);
   cudaError_t err = etch_allow_smem(interconv_mma_kernel<NT>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  interconv_mma_kernel<NT><<<dim3(c, b), kMmaWarps * 32, smem, stream>>>(
+  interconv_mma_kernel<NT><<<dim3(c, b, slices), kMmaWarps * 32, smem, stream>>>(
       xyz, centers, nbr, static_cast<const bf16*>(feats), rk, static_cast<bf16*>(out), P, c, nn,
-      A, K, sigma);
+      A, K, Cw, sigma);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int MT>
 int launch_interconv_tf32(const float* xyz, const float* centers, const int32_t* nbr,
                           const float* feats, const float* rk, float* out, int b, int P, int c,
-                          int nn, int A, int K, int C, float sigma, cudaStream_t stream) {
+                          int nn, int A, int K, int C, int Cw, int slices, float sigma,
+                          cudaStream_t stream) {
   const int np = (nn + kChunk - 1) / kChunk * kChunk;
   const size_t smem = static_cast<size_t>(np) * 20 +
                       static_cast<size_t>(kMmaWarps) * 2 * kChunk * tf32_ld(MT) * sizeof(float);
   cudaError_t err = etch_allow_smem(interconv_tf32_kernel<MT>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  interconv_tf32_kernel<MT><<<dim3(c, b), kMmaWarps * 32, smem, stream>>>(
-      xyz, centers, nbr, feats, rk, out, P, c, nn, A, K, C, sigma);
+  interconv_tf32_kernel<MT><<<dim3(c, b, slices), kMmaWarps * 32, smem, stream>>>(
+      xyz, centers, nbr, feats, rk, out, P, c, nn, A, K, C, Cw, sigma);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// A row of C channels in one launch: ceil(C / kSlice) slices of min(C,
+// kSlice) channels on the grid's z axis (slice_start places them).
+template <typename Launch>
+int launch_slices(int C, Launch launch) {
+  return launch(C < kSlice ? C : kSlice, (C + kSlice - 1) / kSlice);
+}
+
 // Contraction on f32 rows, on the tensor cores with f32 accuracy (3xTF32).
-// Requires C % 4 == 0 and 4 <= C <= 64; any K.
+// Requires C % 4 == 0 (C > 64 runs in channel slices); any K.
 ETCH_API int etch_interconv_t(const float* xyz, const float* centers, const int32_t* nbr,
                               const float* feats, const float* rk, float* out, int b, int P,
                               int c, int nn, int A, int K, int C, float sigma,
                               cudaStream_t stream) {
-  if (C % 4 != 0 || C < 4 || C > 64) return static_cast<int>(cudaErrorInvalidValue);
-  switch ((C + 15) / 16) {
-#define ETCH_CASE(mt)                                                                        \
-  case mt:                                                                                   \
-    return launch_interconv_tf32<mt>(xyz, centers, nbr, feats, rk, out, b, P, c, nn, A, K, \
-                                     C, sigma, stream);
-    ETCH_CASE(1) ETCH_CASE(2) ETCH_CASE(3) ETCH_CASE(4)
+  if (C % 4 != 0 || C < 4) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_slices(C, [&](int Cs, int slices) {
+    switch ((Cs + 15) / 16) {
+#define ETCH_CASE(mt)                                                                            \
+  case mt:                                                                                       \
+    return launch_interconv_tf32<mt>(xyz, centers, nbr, feats, rk, out, b, P, c, nn, A, K, Cs, \
+                                     C, slices, sigma, stream);
+      ETCH_CASE(1) ETCH_CASE(2) ETCH_CASE(3) ETCH_CASE(4)
 #undef ETCH_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  });
 }
 
 // The same contraction on bf16 feature rows, on the tensor cores: bf16 w
-// times bf16 features, f32 sums, bf16 t.  Requires C in {8, 16, ..., 64} and
-// K <= 32.
+// times bf16 features, f32 sums, bf16 t.  Requires C % 8 == 0 (C > 64 runs
+// in channel slices) and K <= 32.
 ETCH_API int etch_interconv_t_bf16(const float* xyz, const float* centers,
                                    const int32_t* nbr, const void* feats, const float* rk,
                                    void* out, int b, int P, int c, int nn, int A, int K, int C,
                                    float sigma, cudaStream_t stream) {
-  if (K > kKp || C % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  switch (C / 8) {
+  if (K > kKp || C % 8 != 0 || C < 8) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_slices(C, [&](int Cs, int slices) {
+    switch (Cs / 8) {
 #define ETCH_CASE(nt)                                                                       \
   case nt:                                                                                  \
     return launch_interconv_mma<nt>(xyz, centers, nbr, feats, rk, out, b, P, c, nn, A, K, \
-                                    sigma, stream);
-    ETCH_CASE(1) ETCH_CASE(2) ETCH_CASE(3) ETCH_CASE(4)
-    ETCH_CASE(5) ETCH_CASE(6) ETCH_CASE(7) ETCH_CASE(8)
+                                    C, slices, sigma, stream);
+      ETCH_CASE(1) ETCH_CASE(2) ETCH_CASE(3) ETCH_CASE(4)
+      ETCH_CASE(5) ETCH_CASE(6) ETCH_CASE(7) ETCH_CASE(8)
 #undef ETCH_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  });
 }
 
 // Occupancy (all-ones features): out (b, c, A*K).

@@ -30,7 +30,7 @@ import torch
 from etch_tpu_torch import _build
 from etch_tpu_torch.nn.bf16 import BF16, rnd
 
-_MAX_E = 128    # widest embedding csrc/attention.cu takes
+_MAX_HS = 128   # widest head csrc/attention.cu takes (heads run in groups of <= 128 columns)
 _MAX_L = 64     # tokens a point: one 64-row tile of queries and keys
 
 
@@ -56,15 +56,16 @@ def attention_cuda(q, k, v, num_heads: int):
 
     One 64-row tile of queries and keys a point (4 warps, 16 query rows
     each; keys L..63 masked), so L <= 64 (the direction head's 60 anchors);
-    a longer L raises.  Any head count that divides E <= 128."""
+    a longer L raises.  Any head count that divides E into heads of at
+    most 128 columns; the heads run in groups of at most 128 columns."""
     device = _build.check_cuda("attention", (q, BF16), (k, BF16), (v, BF16))
     Bc, L, E = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"attention: q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} must have one shape")
-    if E > _MAX_E or num_heads < 1 or E % num_heads:
-        raise ValueError(f"attention: needs E <= {_MAX_E} and a head count that "
-                         f"divides E; got E={E}, {num_heads} heads")
+    if num_heads < 1 or E % num_heads or E // num_heads > _MAX_HS:
+        raise ValueError(f"attention: needs a head count that divides E into heads of "
+                         f"at most {_MAX_HS}; got E={E}, {num_heads} heads")
     if not 1 <= L <= _MAX_L:
         raise ValueError(f"attention: needs 1 <= L <= {_MAX_L} tokens, got {L}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):

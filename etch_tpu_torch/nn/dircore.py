@@ -35,9 +35,14 @@ from etch_tpu_torch import _build
 from etch_tpu_torch.nn.attention import attention_torch
 from etch_tpu_torch.nn.bf16 import BF16, mm, rnd
 
-# csrc/dircore.cu compiles these widths in; narrower heads are zero-padded
+# csrc/dircore.cu compiles these widths in (weights in shared memory);
+# narrower ones are zero-padded
 _ROWS, _E, _V = 64, 64, 128
 _HEAD_SIZES = (1, 2, 4, 8, 16)
+# csrc/dircore_wide.cu (weights from device memory) takes the rest: E and V
+# zero-padded to 128 or 256, head sizes powers of two up to 128
+_WIDE = (128, 256)
+_WIDE_HEAD_SIZES = (1, 2, 4, 8, 16, 32, 64, 128)
 _ROW_PAD = 8   # the kernel's shared-memory rows hold 8 more bf16 than the matrix
 # packed weight matrices, in the kernel's order: name -> (rows, columns)
 _W_LAYOUT = {**{n: (_E, _E) for n in ("wq0", "wk0", "wv0", "wc0", "wq1", "wk1", "wv1")},
@@ -117,10 +122,42 @@ def pack_weights(params, device):
     return w.to(BF16).contiguous(), f.contiguous()
 
 
+def pack_fragments(w, rows: int, cols: int):
+    """A weight matrix (in, out) as the bf16 B fragments of mma.sync
+    m16n8k16, zero-padded to (rows, cols): for k16 step kt, 16-column tile n
+    and lane 4g + t, four 32-bit registers, register 2 nh + kh holding
+    w[16 kt + 8 kh + 2t + e, 16 n + 8 nh + g] for e = 0, 1 (the fragments
+    `csrc/dircore_wide.cu` loads 16 bytes a lane)."""
+    p = _pad(w.float(), rows, cols).to(BF16)
+    p = p.reshape(rows // 16, 2, 4, 2, cols // 16, 2, 8)   # kt kh t e | n nh g
+    return p.permute(0, 4, 6, 2, 5, 1, 3).reshape(-1)
+
+
+def pack_weights_wide(params, device, Ep: int, Vp: int):
+    """The wide kernel's weights: w, the matrices wq0, wk0, wv0, wc0, wq1,
+    wk1, wv1 (Ep x Ep), wc1 (Ep x Vp) and wm0 (Vp x Vp) in fragment order
+    (`pack_fragments`); f, the f32 vectors bc0 (Ep), bc1, bm0 (Vp), then
+    u = bf16(wm1) wr (Vp) and bm1 . wr (padded to 4): the kernel forms
+    out = h2 u + bm1 . wr, which is (h2 wm1 + bm1) wr summed in another
+    order."""
+    p = {k: v.to(device=device, dtype=torch.float32) for k, v in params.items()}
+    sq = [pack_fragments(p[n], Ep, Ep) for n in ("wq0", "wk0", "wv0", "wc0", "wq1", "wk1", "wv1")]
+    w = torch.cat(sq + [pack_fragments(p["wc1"], Ep, Vp), pack_fragments(p["wm0"], Vp, Vp)])
+    wr = p["wr"][:, 0]
+    u = rnd(p["wm1"]) @ wr
+    f = torch.cat([_pad(p["bc0"], Ep), _pad(p["bc1"], Vp), _pad(p["bm0"], Vp), _pad(u, Vp),
+                   _pad((p["bm1"] @ wr)[None], 4)])
+    return w.contiguous(), f.contiguous()
+
+
 def direction_core_cuda(tokens, params, num_heads: int):
     """The kernel: tokens (M, A, E) bf16 on the card, two layers ->
     (M, A) f32 anchor weights (br added here, as the TPU kernel's caller
-    does)."""
+    does).  E <= 64 with V <= 128 and a head size up to 16 runs
+    `csrc/dircore.cu` (weights in shared memory); wider tokens, up to E = 256
+    and V = 256 with a head size a power of two up to 128 (every width the
+    reference's EPN blocks give, at any head count that splits them so),
+    run `csrc/dircore_wide.cu`."""
     device = _build.check_cuda("dircore", (tokens, BF16))
     M, A, E = tokens.shape
     V = params["wm0"].shape[0]
@@ -128,10 +165,21 @@ def direction_core_cuda(tokens, params, num_heads: int):
     n_layers = _num_layers(params)
     if n_layers != 2:
         raise ValueError(f"dircore: the kernel runs 2 layers, got {n_layers}")
-    if A > _ROWS or E > _E or V > _V or hs not in _HEAD_SIZES or hs * num_heads != E:
-        raise ValueError(f"dircore: needs A <= {_ROWS}, E <= {_E}, V <= {_V} and a "
-                         f"head size in {_HEAD_SIZES}; got A={A}, E={E}, V={V}, "
-                         f"{num_heads} heads")
+    if hs * num_heads != E or A > _ROWS:
+        raise ValueError(f"dircore: needs A <= {_ROWS} and a head count that divides E; "
+                         f"got A={A}, E={E}, {num_heads} heads")
+    if E > _E or V > _V or hs not in _HEAD_SIZES:
+        Ep = next((w for w in _WIDE if E <= w), None)
+        Vp = next((w for w in _WIDE if V <= w), None)
+        if Ep is None or Vp is None or hs not in _WIDE_HEAD_SIZES or Ep % hs:
+            raise ValueError(f"dircore: needs E <= {_WIDE[-1]}, V <= {_WIDE[-1]} and a head "
+                             f"size in {_WIDE_HEAD_SIZES}; got E={E}, V={V}, {num_heads} heads")
+        w, f = pack_weights_wide(params, device, Ep, Vp)
+        x = tokens if E == Ep else _pad(tokens, M, A, Ep).contiguous()
+        out = torch.empty((M, A), dtype=torch.float32, device=device)
+        _build.launch("dircore", "etch_dircore_wide", device, _build.ptr(x), _build.ptr(w),
+                      _build.ptr(f), _build.ptr(out), M, A, Ep, Vp, hs, 1.0 / math.sqrt(hs))
+        return out + params["br"].to(device=device, dtype=torch.float32)
     w, f = pack_weights(params, device)
     x = tokens if E == _E else _pad(tokens, M, A, _E).contiguous()
     out = torch.empty((M, A), dtype=torch.float32, device=device)

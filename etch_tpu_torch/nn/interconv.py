@@ -38,12 +38,15 @@ from etch_tpu_torch.nn.bf16 import BF16, rnd
 from etch_tpu_torch.ops.grouping import group_points
 
 _SMEM_BYTES = 227 * 1024
-# the bf16 body (tensor cores): 4 warps a block, kernel points padded to 32
-# rows (two m16 tiles), C a multiple of the n8 tile up to 64
-_MMA_WARPS, _MMA_KP, _MMA_CS = 4, 32, range(8, 65, 8)
-# the f32 body (3xTF32 on the tensor cores): C a multiple of 4 up to 64,
-# neighbours gathered in chunks of 32
-_TF32_CS, _TF32_CHUNK = range(4, 65, 4), 32
+# both tensor-core bodies take up to 64 channels a block; a wider row runs as
+# ceil(C / 64) channel slices of 64 on one launch's third grid axis, the last
+# ending at the row's end (`csrc/interconv.cu:launch_slices`)
+_SLICE = 64
+# the bf16 body: 4 warps a block, kernel points padded to 32 rows (two m16
+# tiles), C a multiple of the n8 tile
+_MMA_WARPS, _MMA_KP, _MMA_C = 4, 32, 8
+# the f32 body (3xTF32): C a multiple of 4, neighbours gathered in chunks of 32
+_TF32_C, _TF32_CHUNK = 4, 32
 
 
 def _weights(xyz, centers, nbr, rk, sigma):
@@ -91,15 +94,16 @@ def interconv_ones_proj_torch(xyz, centers, nbr, rk, sigma: float, A: int, w):
 def mma_smem_bytes(nn: int, K: int, C: int) -> int:
     """Shared memory of one block of the bf16 body (`csrc/interconv.cu`):
     offsets (float4) and indices of nn padded to 16 neighbours, then per
-    warp two feature tiles of max(nn_pad, K) rows of C + 8 bf16 values."""
+    warp two feature tiles of max(nn_pad, K) rows of the widest slice's
+    channels (C up to 64) + 8 bf16 values."""
     np_ = -(-nn // 16) * 16
-    return 20 * np_ + _MMA_WARPS * 2 * max(np_, K) * (C + 8) * 2
+    return 20 * np_ + _MMA_WARPS * 2 * max(np_, K) * (min(C, _SLICE) + 8) * 2
 
 
 def check_mma_geometry(nn: int, K: int, C: int) -> None:
     """Raise on a contraction the bf16 body does not take."""
-    if C not in _MMA_CS or K > _MMA_KP:
-        raise ValueError(f"interconv_t_bf16: needs C in {{8, 16, ..., 64}} and K <= "
+    if C < _MMA_C or C % _MMA_C or K > _MMA_KP:
+        raise ValueError(f"interconv_t_bf16: needs C in {{8, 16, 24, ...}} and K <= "
                          f"{_MMA_KP}, got C={C}, K={K}")
     if mma_smem_bytes(nn, K, C) > _SMEM_BYTES:
         raise ValueError(f"interconv_t_bf16: nn={nn} neighbours do not fit shared memory")
@@ -108,16 +112,16 @@ def check_mma_geometry(nn: int, K: int, C: int) -> None:
 def tf32_smem_bytes(nn: int, C: int) -> int:
     """Shared memory of one block of the f32 body (`csrc/interconv.cu`):
     offsets (float4) and indices of nn padded to 32-neighbour chunks, then
-    per warp a ring of two 32-row f32 tiles whose rows are C rounded up to
-    16, plus 8, values long."""
+    per warp a ring of two 32-row f32 tiles whose rows are the widest
+    slice's channels (C up to 64) rounded up to 16, plus 8, values long."""
     np_ = -(-nn // _TF32_CHUNK) * _TF32_CHUNK
-    return 20 * np_ + _MMA_WARPS * 2 * _TF32_CHUNK * (-(-C // 16) * 16 + 8) * 4
+    return 20 * np_ + _MMA_WARPS * 2 * _TF32_CHUNK * (-(-min(C, _SLICE) // 16) * 16 + 8) * 4
 
 
 def check_tf32_geometry(nn: int, C: int) -> None:
     """Raise on a contraction the f32 body does not take."""
-    if C not in _TF32_CS:
-        raise ValueError(f"interconv_t: needs C in {{4, 8, 12, ..., 64}}, got C={C}")
+    if C < _TF32_C or C % _TF32_C:
+        raise ValueError(f"interconv_t: needs C in {{4, 8, 12, ...}}, got C={C}")
     if tf32_smem_bytes(nn, C) > _SMEM_BYTES:
         raise ValueError(f"interconv_t: nn={nn} neighbours do not fit shared memory")
 
@@ -138,10 +142,9 @@ def _check_geometry(name, xyz, centers, nbr, rk):
 def interconv_t_cuda(xyz, centers, nbr, feats, rk, sigma: float, A: int):
     """f32 feature rows launch `interconv_t`, bf16 rows `interconv_t_bf16`,
     both on the tensor cores (3xTF32 products for f32 accuracy, bf16
-    products).  Both take C <= 64 channels a row (f32: C % 4 == 0, bf16:
-    C % 8 == 0) and raise above: the FP32 body that the f32 route had before
-    its tensor-core body also took wider rows (up to C = 512 at K = 24), but
-    no configuration of the repository has one."""
+    products).  Any width (f32: C % 4 == 0, bf16: C % 8 == 0): rows wider
+    than 64 channels run as channel slices (`csrc/interconv.cu:launch_slices`), as the 128-
+    and 256-channel EPN blocks of `epn_layer_num` 3 and 4 need."""
     bf16 = feats.dtype == BF16
     name = "interconv_t_bf16" if bf16 else "interconv_t"
     device = _check_geometry(name, xyz, centers, nbr, rk)

@@ -30,8 +30,6 @@ from etch_tpu_torch import _build
 from etch_tpu_torch.nn.bf16 import BF16, mm, rnd
 from etch_tpu_torch.ops.grouping import group_points
 
-_BLOCK_ELEMS = 4096   # T * ns * c per block of csrc/vector_attention.cu
-
 
 def vector_attention_torch(xq, xk, xv, idx, pe, a0, w0, a1, w1, b1):
     """xq (R, c); xk, xv (B, N, c); idx (B, N, ns) int; pe (R, ns, c); a0 (2, c)
@@ -65,14 +63,17 @@ def vector_attention_cuda(xq, xk, xv, idx, pe, a0, w0, a1, w1, b1):
         raise ValueError(f"vector_attention: bad shapes xq {tuple(xq.shape)}, xk "
                          f"{tuple(xk.shape)}, idx {tuple(idx.shape)}, pe {tuple(pe.shape)}, "
                          f"w0 {tuple(w0.shape)}, w1 {tuple(w1.shape)}")
-    T = max(1, _BLOCK_ELEMS // (ns * c))
-    w0b = w0.to(BF16).contiguous()
-    w1b = w1.to(BF16).contiguous()
+    if c % 8 or not 8 <= c <= 512:
+        raise ValueError(f"vector_attention: needs c a multiple of 8 up to 512, got {c}")
+    w0, w1 = w0.float().contiguous(), w1.float().contiguous()
+    if any(t.data_ptr() % 16 for t in (xq, xk, xv, pe, w0, w1)):
+        raise ValueError("vector_attention: xq, xk, xv, pe, w0 and w1 must start on a "
+                         "16-byte boundary")
     out = torch.empty((R, c), dtype=torch.float32, device=device)
     _build.launch("vector_attention", "etch_vector_attention", device, _build.ptr(xq),
                   _build.ptr(xk), _build.ptr(xv), _build.ptr(idx), _build.ptr(pe),
-                  _build.ptr(a0), _build.ptr(w0b), _build.ptr(a1), _build.ptr(w1b),
-                  _build.ptr(b1), _build.ptr(out), R, N, ns, c, cs, T)
+                  _build.ptr(a0), _build.ptr(w0), _build.ptr(a1), _build.ptr(w1),
+                  _build.ptr(b1), _build.ptr(out), R, N, ns, c, cs)
     return out
 
 

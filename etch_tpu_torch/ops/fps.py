@@ -14,9 +14,9 @@ import torch
 
 from etch_tpu_torch import _build
 
-# 4 floats a point (x, y, z, running min) must fit the 227 KB of shared
-# memory a block can use
-_FPS_MAX_POINTS = 227 * 1024 // 16
+# csrc/fps.cu keeps up to this many points a cloud in registers; above it the
+# cloud and its running minimum stream from a (B, N, 4) f32 scratch
+_FPS_REG_POINTS = 8192
 
 
 def _sqdist(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
@@ -41,15 +41,14 @@ def fps_torch(xyz: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def fps_cuda(xyz: torch.Tensor, m: int) -> torch.Tensor:
-    """Kernel launch.  xyz (B, N, 3) f32 CUDA -> (B, m) int32."""
+    """Kernel launch.  xyz (B, N, 3) f32 CUDA -> (B, m) int32, any N."""
     device = _build.check_cuda("fps", (xyz, torch.float32))
     B, N, _ = xyz.shape
-    if N > _FPS_MAX_POINTS:
-        raise ValueError(f"fps: N={N} exceeds the shared-memory bound "
-                         f"{_FPS_MAX_POINTS}")
     out = torch.empty((B, m), dtype=torch.int32, device=device)
+    scratch = (torch.empty((B, N, 4), dtype=torch.float32, device=device)
+               if N > _FPS_REG_POINTS else None)
     _build.launch("fps", "etch_fps", device, _build.ptr(xyz), _build.ptr(out),
-                  B, N, m)
+                  None if scratch is None else _build.ptr(scratch), B, N, m)
     return out
 
 

@@ -135,3 +135,36 @@ def test_etchnet_forward(models):
         _close(out[key].numpy(), ref[key])
     err = np.abs(out["direction"].numpy() - np.asarray(ref["direction"]))
     assert np.quantile(err, 0.99) <= 2e-4 and err.max() <= 1e-2, err.max()
+
+
+DEEP_KW = dict(CFG_KW, epn_layer_num=3, epn_mlps=((8, 8), (8, 8), (16, 16)))
+
+
+@torch.no_grad()
+def test_deeper_epn_forward():
+    """epn_layer_num=3 (the reference CLI's --EPN_layer_num) with three EPN
+    blocks of tiny widths: the third block, the wider direction tokens and
+    the U-Nets' wider point features are the same model in both packages."""
+    jm = JaxEtchNet(cfg=JaxConfig.tiny(**DEEP_KW))
+    v = jax.jit(lambda r, x: jm.init(r, x, train=False))(
+        jax.random.PRNGKey(1), jnp.zeros((1, N, 3)))
+    rng = np.random.RandomState(9)
+    variables = {"params": _perturb(jax.tree_util.tree_map(np.asarray, v["params"]), rng),
+                 "batch_stats": _perturb(jax.tree_util.tree_map(np.asarray, v["batch_stats"]), rng)}
+    skip = variables["params"]["encoder"]["block0_conv0"]["skip_conv"]
+    skip["kernel"], skip["bias"] = np.zeros_like(skip["kernel"]), np.zeros_like(skip["bias"])
+    cfg = EtchConfig.tiny(**DEEP_KW)
+    tm = EtchNet(cfg).eval()
+    tm.load_state_dict(flax_to_state_dict(variables["params"], variables["batch_stats"], cfg))
+    pts = _points(5, 2)
+    cloud, _ = jm.apply(variables, jnp.asarray(pts), method=lambda m, x: m.encoder(x))
+    xyz, feats = tm.encoder(torch.from_numpy(pts))
+    assert feats.shape[-1] == 16
+    np.testing.assert_array_equal(xyz.numpy(), np.asarray(cloud.xyz))
+    _close(feats.numpy(), cloud.feats)
+    ref = jm.apply(variables, jnp.asarray(pts), train=False)
+    out = tm(torch.from_numpy(pts))
+    for key in ("magnitude", "part_labels", "confidences"):
+        _close(out[key].numpy(), ref[key])
+    err = np.abs(out["direction"].numpy() - np.asarray(ref["direction"]))
+    assert np.quantile(err, 0.99) <= 2e-4 and err.max() <= 1e-2, err.max()
