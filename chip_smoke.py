@@ -14,7 +14,10 @@ built at first use).  Phases, each of which raises on failure:
      EPN convs, both contractions at conv1, conv2 and conv3 in 512-center
      chunks and their ragged last chunk, the occupancy convs likewise, the
      anchor attention at full and ragged 2048-point chunks, vector attention
-     at each U-Net level): FPS, kNN and ball-query indices must be equal,
+     at each U-Net level; and, launched by no timed request, the widths
+     repaired since: kNN at k = 48, the direction core at a head of 256 and
+     at E = 512, the attention at a head of 256, wider contraction rows):
+     FPS, kNN and ball-query indices must be equal,
      the f32 inter-conv contraction (3xTF32 on the tensor cores; C >= 4 and
      C == 1 rows) and occupancy conv within
      1e-5 * max|t| (f32 sums in another order); the bf16 kernels (contraction
@@ -34,8 +37,10 @@ built at first use).  Phases, each of which raises on failure:
      variants (SMALL_STEPS): f32; bf16 with two direction layers (the fused
      direction core); bf16 with the tiny config's one layer (the chunked core
      and the anchor-attention kernel); f32 and bf16 with an EPN schedule
-     whose second conv reads 1-channel rows (the C == 1 contraction).  Each
-     must launch exactly its own kernel set; tolerances in `small_step`;
+     whose second conv reads 1-channel rows (the C == 1 contraction); then
+     the deeper EPN at full width (DEEP_STEPS).  Each must launch exactly its
+     own kernel set; tolerances in `small_step`, the bf16 steps' directions
+     included;
   5. main paths: `build_pipeline(EtchConfig(num_point=5000, batch_size=8,
      use_bfloat16=...))` with random weights and the synthetic body,
      `run_batch` on capsule clouds: bf16 (the configuration bench.py times),
@@ -151,6 +156,12 @@ def bound(bytes_, tensor_flop=0.0, fp32_flop=0.0, tensor_peak=PEAK_BF16_TENSOR):
 
 # FP32 operations per kernel-point weight relu(1 - |x - r|^2 / sigma)
 WEIGHT_FLOP = 11
+# the same weight summed over a center's neighbours in the TPU kernel's
+# expanded form, max(x . (2 r / sigma) + 1 - |r|^2 / sigma, xx) - xx: 3 FFMA,
+# a max and the sum's add; and per neighbour its offset from the center
+# (3), xx = |x|^2 / sigma (an FMUL, 2 FFMA and the scale: 6) and the sum of
+# the xx (1); the (A, K) x (K, Co) projection on the tensor cores
+EXPANDED_WEIGHT_FLOP, NEIGHBOUR_FLOP = 8, 10
 
 
 def interconv_bound(B, P, c, nn, A, K, C, elem):
@@ -242,17 +253,35 @@ def as_accurate(out, twin, exact, limit=AS_ACCURATE):
     return got, ref, got[0] <= limit * ref[0] and got[1] <= limit * ref[1]
 
 
+def median_angle(d, ref):
+    """Median angle (radians) between two fields of unit directions (..., 3)."""
+    cos = (d.float().cpu() * ref.float().cpu()).sum(-1).clamp(-1.0, 1.0)
+    return cos.acos().median().item()
+
+
+def direction_accuracy(gpu, cpu, f32):
+    """The direction head of a bf16 step on the card (`gpu`) and on the CPU
+    (`cpu`) against the same weights served in f32 on the CPU: their median
+    angles from the f32 directions, and whether the card's is within
+    AS_ACCURATE_STEP times the CPU's (the head is ill-conditioned at random
+    weights, so bf16 rounding alone moves directions by degrees; phase 3 and
+    the card tests judge its core and attention alone)."""
+    angles = [median_angle(o["direction"], f32["direction"]) for o in (gpu, cpu)]
+    return ({"card_median_angle": angles[0], "cpu_median_angle": angles[1]},
+            angles[0] <= AS_ACCURATE_STEP * angles[1])
+
+
 def bf16_step_accuracy(gpu, cpu, f32):
     """A full-width bf16 serving step on the card (`gpu`) and on the CPU
     (`cpu`), each against the same weights served in f32 on the CPU:
     confidences and vector lengths (`as_accurate`, the CPU's step as the
-    twin) and the share of part labels off the f32 ones.  Returns the
-    report and whether the card's step is as accurate as the CPU's: within
-    AS_ACCURATE_STEP times its errors, and part labels off on at most
-    max(AS_ACCURATE_STEP times the CPU's share, 2%) of the points.  None of
-    these depends on the direction head (directions are unit vectors): its
-    core is judged by `as_accurate` in phase 3 and the card tests."""
+    twin), directions (`direction_accuracy`) and the share of part labels
+    off the f32 ones.  Returns the report and whether the card's step is as
+    accurate as the CPU's: within AS_ACCURATE_STEP times its errors, and
+    part labels off on at most max(AS_ACCURATE_STEP times the CPU's share,
+    2%) of the points."""
     report, ok = {}, True
+    report["direction"], ok = direction_accuracy(gpu, cpu, f32)
     for key, fn in (("confidences", lambda o: o["confidences"].float().cpu()),
                     ("vector_length", lambda o: o["vectors"].float().cpu().norm(dim=-1))):
         (gm, gx), (cm, cx), good = as_accurate(fn(gpu), fn(cpu), fn(f32), AS_ACCURATE_STEP)
@@ -342,6 +371,7 @@ def compare_kernels(torch, dev):
     knn_shapes += [(16, lv[l], lv[l]) for l in range(1, 5)]
     knn_shapes += [(16, lv[l], lv[l - 1]) for l in range(2, 5)]
     knn_shapes += [(3, lv[l], lv[l + 1]) for l in range(1, 4)]
+    knn_shapes.append((48, 1250, N))   # repaired: k above 32 (passes of 32)
     for k, Q, S in knn_shapes:
         q, s = clouds[Q], clouds[S]
         label = f"k={k} {Q}x{S}"
@@ -515,7 +545,8 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
               lambda: interconv.interconv_ones_proj_cuda(xyz, ctr, nbr, rk, sg, 60, w),
               lambda: interconv.interconv_ones_proj_torch(xyz, ctr, nbr, rk, sg, 60, w),
               bound(B * N * 12 + B * c * 12 + B * c * ns * 4 + 1440 * 12 + B * c * 60 * Co * 2,
-                    0.0, (WEIGHT_FLOP + 1.0) * B * c * ns * 1440 + 2.0 * B * c * 1440 * Co))
+                    2.0 * B * c * 1440 * Co,
+                    (EXPANDED_WEIGHT_FLOP * 1440 + NEIGHBOUR_FLOP) * B * c * ns))
 
     # contraction on bf16 feature rows: conv1, conv2 and conv3 as for f32 rows
     for spec in specs[1:]:
@@ -554,10 +585,11 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
           c1_bound(spec["n_neighbor"], 2))
     del feats
 
-    # direction core: every point's (60, E) tokens, 8 heads, V=128: E = 64
-    # (the main path), then the repaired E = 128 and 256 (epn_layer_num 3, 4)
-    V, H = 128, 8
-    for E in (64, 128, 256):
+    # direction core: every point's (60, E) tokens, V=128: E = 64 with 8 heads
+    # (the main path), then the repaired E = 128 and 256 (epn_layer_num 3, 4),
+    # one head of 256 columns and a 512-wide last EPN block
+    V = 128
+    for E, H in ((64, 8), (128, 8), (256, 8), (256, 1), (512, 8)):
         params = {}
         for l in (0, 1):
             for nm in ("wq", "wk", "wv"):
@@ -578,7 +610,7 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
               bound(M * A * E * 2 + M * A * 4, flop),
               exact_fn=(lambda: plain(tokens.float())) if E > 128 else None)
         del tokens
-    E = 64
+    E, H = 64, 8
 
     # anchor attention of the chunked core: the 2048-point chunks of a
     # direction layer and its ragged last one, two layers, 8 heads (its
@@ -596,18 +628,21 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
               bound(3 * Bc * L * E * 2 + Bc * L * E * 4, 4.0 * Bc * L * L * E),
               library_fn=lambda: sdpa(qh, kh, vh, scale=1.0))
         del q, k, v, qh, kh, vh
-    # repaired: the chunked core's attention at E = 256 (two head groups)
+    # repaired: the chunked core's attention at E = 256, 8 heads (two head
+    # groups) and one head of 256 columns (one point a block)
     E2, Bc = 256, 2048
-    hs2 = E2 // H
-    q, k, v = (randn(Bc, L, E2, scale=hs2 ** -0.5 if i == 0 else 1.0).to(bf) for i in range(3))
-    qh, kh, vh = (t.reshape(Bc, L, H, hs2).transpose(1, 2).reshape(Bc * H, L, hs2).contiguous()
-                  for t in (q, k, v))
-    check("attention", f"Bc={Bc} L={L} E={E2} H={H}",
-          lambda: attention.attention_cuda(q, k, v, H),
-          lambda: attention.attention_torch(q, k, v, H),
-          bound(3 * Bc * L * E2 * 2 + Bc * L * E2 * 4, 4.0 * Bc * L * L * E2),
-          library_fn=lambda: sdpa(qh, kh, vh, scale=1.0))
-    del q, k, v, qh, kh, vh
+    for H2 in (8, 1):
+        hs2 = E2 // H2
+        q, k, v = (randn(Bc, L, E2, scale=hs2 ** -0.5 if i == 0 else 1.0).to(bf)
+                   for i in range(3))
+        qh, kh, vh = (t.reshape(Bc, L, H2, hs2).transpose(1, 2).reshape(Bc * H2, L, hs2)
+                      .contiguous() for t in (q, k, v))
+        check("attention", f"Bc={Bc} L={L} E={E2} H={H2}",
+              lambda: attention.attention_cuda(q, k, v, H2),
+              lambda: attention.attention_torch(q, k, v, H2),
+              bound(3 * Bc * L * E2 * 2 + Bc * L * E2 * 4, 4.0 * Bc * L * L * E2),
+              library_fn=lambda: sdpa(qh, kh, vh, scale=1.0))
+        del q, k, v, qh, kh, vh
 
     # vector attention at each U-Net level's shape and width (magnitude
     # planes 64, 128, 256, 256, 512; confidence 128 at level 0)
@@ -650,9 +685,12 @@ SMALL_STEPS = (  # phase 4: (label, EtchConfig.tiny overrides, kernel set on the
     ("bf16, 1-channel conv", dict(use_bfloat16=True, epn_mlps=C1_MLPS), "bf16_chunked_c1"),
 )
 DEEP_STEPS = (  # phase 4 at full width, EtchConfig(epn_layer_num=4) at N=1024, B=2: the
-    # 128- and 256-channel blocks (channel slices) and the E = 256 direction core
+    # 128- and 256-channel blocks (channel slices) and the E = 256 direction core,
+    # with 8 heads and with one head of 256 columns
     ("f32, epn_layer_num=4", dict(epn_layer_num=4), "f32"),
     ("bf16, epn_layer_num=4", dict(epn_layer_num=4, use_bfloat16=True), "bf16"),
+    ("bf16, epn_layer_num=4, one direction head",
+     dict(epn_layer_num=4, use_bfloat16=True, dir_num_heads=1), "bf16"),
 )
 
 
@@ -671,7 +709,9 @@ def small_step(torch, _build, label, cfg, path, fused_core=True, full_width=Fals
     flips travel through the network: part labels equal for 98% of the
     points, confidences and vector lengths (magnitude / 10, as directions
     are ill-conditioned) within a median relative error of 1e-2 and
-    2e-2 * (1 + max) for all, finite outputs.  bf16 at `full_width`: there
+    2e-2 * (1 + max) for all, finite outputs, and the direction head's
+    output (captured by a forward hook) as accurate as the CPU's bf16 step
+    against the f32 one (`direction_accuracy`).  bf16 at `full_width`: there
     the flips alone move the card's plain versions further from the CPU than
     that, so the card's step is held to be as accurate as the CPU's against
     the same weights served in f32 on the CPU: confidences and vector
@@ -681,10 +721,16 @@ def small_step(torch, _build, label, cfg, path, fused_core=True, full_width=Fals
     from etch_tpu_torch.pipeline import build_pipeline
 
     def serve(config, device):
+        """run_batch's dict, with the direction head's unit directions."""
         pipe = build_pipeline(config, MARKERSET, allow_synthetic_body=True, rng_seed=0,
                               device=device)
-        pipe.model.direction_head.fused_core = fused_core
-        return pipe.run_batch(pts)
+        head = pipe.model.direction_head
+        head.fused_core = fused_core
+        seen = {}
+        hook = head.register_forward_hook(lambda _m, _i, o: seen.update(direction=o))
+        out = pipe.run_batch(pts)
+        hook.remove()
+        return {**out, "direction": seen["direction"]}
 
     pts = capsule_clouds(cfg.batch_size, cfg.num_point, seed=3)
     _build.reset_launch_counts()
@@ -717,6 +763,10 @@ def small_step(torch, _build, label, cfg, path, fused_core=True, full_width=Fals
                 raise AssertionError(f"small reference {label}: {key} {report[key]}")
         if agree < 0.98:
             raise AssertionError(f"small reference {label}: part labels agree on {agree:.4f}")
+        report["direction"], ok = direction_accuracy(
+            gpu, cpu, serve(cfg.replace(use_bfloat16=False), "cpu"))
+        if not ok:
+            raise AssertionError(f"small reference {label}: directions {report['direction']}")
     else:
         if not torch.equal(gpu["part_labels"].cpu(), cpu["part_labels"]):
             raise AssertionError(f"small reference {label}: part labels differ")

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "etch_interconv_ones_proj": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _F, _P),
     "etch_dircore": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    "etch_dircore_wide": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "etch_dircore_wide": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "etch_vector_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _P),
     "etch_grouped_head": (_P, _P, _P, _P, _P, _P, _I, _I, _P),

@@ -44,16 +44,18 @@
 //   - Heads are independent, so a point's heads run in groups of at most
 //     128 layout columns on the grid's second axis (E = 256: two groups);
 //     each group's block holds only its columns of k, v and the output.
-// Shared memory per group: k and v, 2 x 64 x (gw + 8) bf16, and the staged
+//     A head wider than 128 columns (up to 256) is a group of its own, and
+//     its block takes one point, not kGroups: two points' tiles would not
+//     fit shared memory.
+// Shared memory per point: k and v, 2 x 64 x (gw + 8) bf16, and the staged
 // output, 4 x 16 x (gw + 8) f32, gw the group's columns: 36,864 bytes at
-// E = 64, 73,728 a block.
+// E = 64 (73,728 a block), 135,168 at a 256-column head.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kRows = 64;                 // query and key rows, padded: 4 warps x 16
 constexpr int kGroups = 2;                // points a block
-constexpr int kThreads = 128 * kGroups;
 
 // How a point's heads sit in shared memory: head h in columns h*hp ..
 // h*hp + hs - 1 of ep, zero up to hp; direct when that is the row layout of
@@ -90,21 +92,25 @@ __device__ __forceinline__ void stage(float* st, int ldo, int col, const float (
   *reinterpret_cast<float2*>(st + (g + 8) * ldo + col + t2) = make_float2(o[2], o[3]);
 }
 
-// grid (ceil(M / kGroups), head groups); block kThreads.  HT: the head
-// size for 1, 2, 4 and 8 (8 also takes 3, 5, 6, 7 padded to 8), else a bound
-// on the padded head size hp (a multiple of 16).
+// Points a block: kGroups, or one for a head wider than 128 columns.
+__host__ __device__ constexpr int points_a_block(int HT) { return HT > 128 ? 1 : kGroups; }
+
+// grid (ceil(M / points_a_block(HT)), head groups); block 128 points.  HT:
+// the head size for 1, 2, 4 and 8 (8 also takes 3, 5, 6, 7 padded to 8),
+// else a bound on the padded head size hp (a multiple of 16).
 template <int HT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(128 * points_a_block(HT))
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, float* __restrict__ out, int M, Layout ly) {
+  constexpr int kPoints = points_a_block(HT);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int group = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  const int point = blockIdx.x * kGroups + group;
+  const int point = blockIdx.x * kPoints + group;
   if (point >= M) return;   // the whole group: only group barriers follow
   const int tile = kRows * ly.ld;
   bf16* ks = reinterpret_cast<bf16*>(smem_raw) + group * 2 * tile;
   bf16* vs = ks + tile;
-  float* st = reinterpret_cast<float*>(reinterpret_cast<bf16*>(smem_raw) + kGroups * 2 * tile) +
+  float* st = reinterpret_cast<float*>(reinterpret_cast<bf16*>(smem_raw) + kPoints * 2 * tile) +
               (group * 4 + warp) * 16 * ly.ldo;
   const size_t base = static_cast<size_t>(point) * ly.L * ly.E;
   // this block's head group: layout columns c0 .. c0 + ew - 1, heads h0 ..
@@ -194,22 +200,23 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HT>
 int launch(const bf16* q, const bf16* k, const bf16* v, float* out, int M, const Layout& ly,
            cudaStream_t stream) {
-  const size_t smem = kGroups * (2 * static_cast<size_t>(kRows) * ly.ld * sizeof(bf16) +
+  constexpr int kPoints = points_a_block(HT);
+  const size_t smem = kPoints * (2 * static_cast<size_t>(kRows) * ly.ld * sizeof(bf16) +
                                  4 * 16 * static_cast<size_t>(ly.ldo) * sizeof(float));
   cudaError_t err = etch_allow_smem(attention_kernel<HT>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + kGroups - 1) / kGroups, (ly.ep + ly.gw - 1) / ly.gw);
-  attention_kernel<HT><<<grid, kThreads, smem, stream>>>(q, k, v, out, M, ly);
+  const dim3 grid((M + kPoints - 1) / kPoints, (ly.ep + ly.gw - 1) / ly.gw);
+  attention_kernel<HT><<<grid, 128 * kPoints, smem, stream>>>(q, k, v, out, M, ly);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, k, v (M, L, E) bf16 -> out (M, L, E) f32.  L <= 64, H divides E and
-// the head size is at most 128.
+// the head size is at most 256.
 ETCH_API int etch_attention(const void* q, const void* k, const void* v, float* out, int M,
                             int L, int E, int H, cudaStream_t stream) {
-  if (L < 1 || L > kRows || H < 1 || E % H != 0 || E / H > 128)
+  if (L < 1 || L > kRows || H < 1 || E % H != 0 || E / H > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   Layout ly;
   ly.L = L;
@@ -226,11 +233,11 @@ ETCH_API int etch_attention(const void* q, const void* k, const void* v, float* 
     ly.ep = 8 * H;
   } else {                               // k16 steps
     ly.hp = round_up(hs, 16);
-    ht = ly.hp <= 16 ? 16 : ly.hp <= 32 ? 32 : ly.hp <= 64 ? 64 : 128;
+    ht = ly.hp <= 16 ? 16 : ly.hp <= 32 ? 32 : ly.hp <= 64 ? 64 : ly.hp <= 128 ? 128 : 256;
     ly.ep = H * ly.hp;
   }
   ly.direct = ly.hp == hs && E % 8 == 0;
-  ly.gw = ly.ep <= 128 ? ly.ep : 128 / ly.hp * ly.hp;
+  ly.gw = ly.ep <= 128 ? ly.ep : ly.hp > 128 ? ly.hp : 128 / ly.hp * ly.hp;
   ly.ld = round_up(ly.gw, 16) + 8;
   ly.ldo = round_up(ly.gw, 32) + 8;
   const bf16* qb = static_cast<const bf16*>(q);
@@ -244,6 +251,7 @@ ETCH_API int etch_attention(const void* q, const void* k, const void* v, float* 
     case 16: return launch<16>(qb, kb, vb, out, M, ly, stream);
     case 32: return launch<32>(qb, kb, vb, out, M, ly, stream);
     case 64: return launch<64>(qb, kb, vb, out, M, ly, stream);
-    default: return launch<128>(qb, kb, vb, out, M, ly, stream);
+    case 128: return launch<128>(qb, kb, vb, out, M, ly, stream);
+    default: return launch<256>(qb, kb, vb, out, M, ly, stream);
   }
 }

@@ -1,6 +1,8 @@
-// Direction-head core at embed widths above 64 (E <= 256, V <= 256, head
-// sizes 1, 2, 4, 8, 16, 32, 64, 128): the fused core of csrc/dircore.cu for
-// the 128- and 256-channel EPN blocks of epn_layer_num 3 and 4.
+// Direction-head core at embed widths above 64 (E and V up to 512; head
+// sizes 1, 2, 4, 8 and multiples of 16 up to 256, any other head size
+// zero-padded to one of these by the wrapper): the fused core of
+// csrc/dircore.cu for the 128- and 256-channel EPN blocks of epn_layer_num 3
+// and 4, wider last blocks, and head counts that leave wide heads.
 //
 // Replaces etch_tpu/nn/pallas_dircore.py:direction_core_pallas (_kernel) at
 // those widths; it computes what dircore.cu computes, with the same rounding
@@ -9,11 +11,13 @@
 // the wrapper): the same sums in another order, and no h2 to keep.
 //
 // Why a second kernel: the packed weights of two layers, 8 E^2 + 2 V^2 bf16
-// values, take about 330 KB at E = 128 and 1.1 MB at E = 256 (151,552 B at
-// E = 64), so they cannot stay in shared memory.  Design:
-//   - Persistent blocks of G groups (G = 3 at E = 128, 2 at E = 256: what
-//     shared memory and the registers hold: 168 and 255 registers a thread), 4 warps a group, a warp owns
-//     16 of a point's 64 padded token rows; a group walks over points.
+// values, take about 330 KB at E = 128, 1.1 MB at E = 256 and 4.7 MB at
+// E = V = 512 (151,552 B at E = 64), so they cannot stay in shared memory.
+// Design:
+//   - Persistent blocks of G groups (G = 3 at E = 128, 2 at E = 256, 1 at
+//     E = 512: what shared memory and the registers hold), 4 warps a group,
+//     a warp owns 16 of a point's 64 padded token rows; a group walks over
+//     points.
 //   - The B fragments come from device memory, where the L2 holds them: the
 //     wrapper packs each matrix in fragment order (nn/dircore.py:
 //     pack_weights_wide), so a lane's two n8 tiles of a k16 step are one
@@ -22,10 +26,25 @@
 //     output o (which overwrites q head by head, once the head's q is read)
 //     and the hidden layer h1 pass through shared memory and come back as A
 //     fragments by ldmatrix, which keeps the registers to x and one
-//     accumulator pair at E = 256.  k and v are shared by the group, as in
-//     dircore.cu; h1 takes their place once the group's attention is done.
+//     accumulator pair at E = 256.  At E = 512, x alone is 128 registers a
+//     thread and part of it spills to local memory (the L1 and L2): there
+//     is no room left in shared memory, which k, v and q fill.  k and v are
+//     shared by the group, as in dircore.cu; h1 takes their place once the
+//     group's attention is done, which needs Vp <= max(Ep, 256): the
+//     wrapper widens Ep to 512 for V above 256.
+//   - q, k, v and o are in the head layout: Eh = H hp columns, head h at
+//     columns h hp .. h hp + hp - 1 (the wrapper pads each head with zero
+//     columns to hp, and Ep >= max(E, Eh)); columns from Eh on are zero.
+//     The attention runs over every whole head of hp columns in Ep: a head
+//     of zero columns gives o = 0, which meets zero rows of wc (exact).
+//   - Instances by head size HS: 1, 2, 4, 8 (8-column tiles); 16 (powers of
+//     two 16-128, up to 8 k16 steps); 256 (16 steps); 48, any other
+//     multiple of 16 (16 steps where E >= 256), whose heads need not tile
+//     Ep.  A power of two tiles Ep, so its head loop runs to the
+//     compile-time Ep: the general bound costs the E = 128 instance 72
+//     bytes more of spills and about 5% of its time on an H100.
 //   - Attention: common.cuh's per-head attention, m16n8k8 tiles for head
-//     sizes up to 8, k16 steps above (up to 8 of them: head size 128).
+//     sizes up to 8, k16 steps above (up to 16 of them: head size 256).
 // Bound on the H100: the tensor cores and the L2.  At E = 256 a point's
 // warps read its 1.3 MB of weights from the L2 each, which is what this
 // kernel's time follows; it takes the repaired widths, not the main path.
@@ -43,6 +62,8 @@ struct WideDims {
   float scale;
   int nk16;   // k16 steps a head (head sizes >= 16)
 };
+
+__host__ __device__ constexpr int wide_groups(int KE) { return KE > 16 ? 1 : KE > 8 ? 2 : 3; }
 
 typedef uint32_t Frag[4];
 
@@ -92,7 +113,7 @@ __device__ __forceinline__ void sts_pairs(bf16* m, int ld, int r0, int c0, Fn f)
 // matrices wq0, wk0, wv0, wc0, wq1, wk1, wv1 (Ep x Ep), wc1 (Ep x Vp) and wm0
 // (Vp x Vp) in fragment order; f: bc0 (Ep), bc1, bm0, u (Vp), bm1 . wr (4).
 template <int KE, int HS>
-__global__ void __launch_bounds__(128 * (KE > 8 ? 2 : 3), 1)
+__global__ void __launch_bounds__(128 * wide_groups(KE), 1)
 dircore_wide_kernel(const bf16* __restrict__ tokens, const uint4* __restrict__ w,
                     const float* __restrict__ f, float* __restrict__ out, WideDims d) {
   constexpr int Ep = 16 * KE;
@@ -179,8 +200,8 @@ dircore_wide_kernel(const bf16* __restrict__ tokens, const uint4* __restrict__ w
       } else {
         const int hsz = 16 * d.nk16;
 #pragma unroll 1
-        for (int hc = 0; hc < Ep; hc += hsz) {
-          etch_attention_head16<8>(
+        for (int hc = 0; (HS & (HS - 1)) ? hc + hsz <= Ep : hc < Ep; hc += hsz) {
+          etch_attention_head16<HS == 256 || (HS == 48 && KE >= 16) ? 16 : 8>(
               [&](int kt, uint32_t (&a)[4]) { lds_a(a, act + hc, d.ldA, r0, kt); },
               ks + hc, vs + hc, d.ldE, d.A, d.nk16,
               [&](int j, const float (&o0)[4], const float (&o1)[4]) {
@@ -229,7 +250,7 @@ dircore_wide_kernel(const bf16* __restrict__ tokens, const uint4* __restrict__ w
     const auto ha = [&](int kt, uint32_t (&a)[4]) { lds_a(a, hs1, d.ldH, r0, kt); };
 #pragma unroll 1
     for (int n = 0; n < d.Vp / 16; ++n) {
-      mma_wide<16>(acc, ha, d.Vp / 16, wm0, d.Vp / 16, n);
+      mma_wide<(KE > 16 ? 32 : 16)>(acc, ha, d.Vp / 16, wm0, d.Vp / 16, n);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int col = 16 * n + 8 * j + t2;
@@ -257,7 +278,7 @@ int launch(const bf16* tokens, const uint4* w, const float* f, float* out, WideD
   const size_t fbytes = static_cast<size_t>(16 * KE + 3 * d.Vp + 4) * sizeof(float);
   const size_t gbytes = static_cast<size_t>(kRows) * (2 * d.ldE + d.ldA) * sizeof(bf16);
   // groups a block: what shared memory holds, at most the launch bound's
-  const int most = KE > 8 ? 2 : 3;
+  const int most = wide_groups(KE);
   int G = static_cast<int>((232448 - fbytes) / gbytes);
   G = G > most ? most : G;
   const size_t smem = fbytes + G * gbytes;
@@ -281,22 +302,27 @@ int launch_hs(const bf16* tokens, const uint4* w, const float* f, float* out, Wi
     case 2: return launch<KE, 2>(tokens, w, f, out, d, stream);
     case 4: return launch<KE, 4>(tokens, w, f, out, d, stream);
     case 8: return launch<KE, 8>(tokens, w, f, out, d, stream);
-    case 16: case 32: case 64: case 128: return launch<KE, 16>(tokens, w, f, out, d, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:   // multiples of 16
+      if (hs & (hs - 1)) return launch<KE, 48>(tokens, w, f, out, d, stream);
+      if constexpr (KE >= 16)
+        if (hs == 256) return launch<KE, 256>(tokens, w, f, out, d, stream);
+      return launch<KE, 16>(tokens, w, f, out, d, stream);
   }
 }
 
 }  // namespace
 
-// tokens (M, A, Ep) bf16, Ep = 128 or 256; w: the packed fragments
+// tokens (M, A, Ep) bf16, Ep = 128, 256 or 512; w: the packed fragments
 // (nn/dircore.py:pack_weights_wide); f: bc0, bc1, bm0, u and bm1 . wr (f32,
-// Ep + 3 Vp + 4 values), Vp = 128 or 256; out (M, A) f32.  A <= 64, hs a
-// power of two up to 128 that divides Ep.
+// Ep + 3 Vp + 4 values), Vp = 128, 256 or 512 and at most max(Ep, 256);
+// out (M, A) f32.  A <= 64; q, k, v in the head layout of H heads of hs
+// columns (1, 2, 4, 8 or a multiple of 16 up to 256), H hs <= Ep.
 ETCH_API int etch_dircore_wide(const void* tokens, const void* w, const float* f, float* out,
-                               int M, int A, int Ep, int Vp, int hs, float scale,
+                               int M, int A, int Ep, int Vp, int H, int hs, float scale,
                                cudaStream_t stream) {
-  if (A < 1 || A > kRows || (Vp != 128 && Vp != 256) || hs < 1 || hs > 128 || (hs & (hs - 1)) ||
-      Ep % hs)
+  const bool tile8 = hs == 1 || hs == 2 || hs == 4 || hs == 8;
+  if (A < 1 || A > kRows || (Vp != 128 && Vp != 256 && Vp != 512) || Vp > (Ep > 256 ? Ep : 256) ||
+      H < 1 || hs < 1 || hs > 256 || (!tile8 && hs % 16) || H * hs > Ep)
     return static_cast<int>(cudaErrorInvalidValue);
   WideDims d;
   d.M = M, d.A = A, d.Ep = Ep, d.Vp = Vp;
@@ -308,5 +334,6 @@ ETCH_API int etch_dircore_wide(const void* tokens, const void* w, const float* f
   const uint4* wf = static_cast<const uint4*>(w);
   if (Ep == 128) return launch_hs<8>(t, wf, f, out, d, hs, stream);
   if (Ep == 256) return launch_hs<16>(t, wf, f, out, d, hs, stream);
+  if (Ep == 512) return launch_hs<32>(t, wf, f, out, d, hs, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -117,10 +117,10 @@
 // (bf16) and Cw % 4 == 0 (f32) put them.  Each slice evaluates the weights
 // again; the instances and their speed at C <= 64 are those above.
 //
-// The fused occupancy projection is bound by the weight evaluation, as the
-// plain occupancy kernel is (nn*A*K = 92 K weights per center); its
-// projection adds A*K*Co = 46 K FMAs per center out of shared memory and
-// removes the (B, c, A, K) f32 intermediate and the separate projection.
+// The fused occupancy projection (interconv_ones_proj_kernel, below) is
+// bound by the weight evaluation, as the plain occupancy kernel is
+// (nn*A*K = 92 K weights per center); it takes the expanded form of the
+// weights, and its projection runs on the tensor cores.
 //
 // The C == 1 body keeps _kernel_c1's rounding: w is the exact f32 weight
 // (not rounded to bf16, unlike the C >= 8 body), the products and sums are
@@ -534,42 +534,172 @@ __global__ void interconv_ones_kernel(const float* __restrict__ xyz,      // (B,
   }
 }
 
-// grid (c, B); block 256.  The neighbour sums of interconv_ones_kernel (same
-// f32 summation order), rounded to bf16 in shared memory, then a per-anchor
-// (A, K) x (K, Co) product with f32 accumulators, written as bf16.
-__global__ void interconv_ones_proj_kernel(const float* __restrict__ xyz,      // (B, P, 3)
-                                           const float* __restrict__ centers,  // (B, c, 3)
-                                           const int32_t* __restrict__ nbr,    // (B, c, nn)
-                                           const float* __restrict__ rk,       // (A*K, 3)
-                                           const bf16* __restrict__ w,         // (K, Co)
-                                           bf16* __restrict__ out,             // (B, c, A*Co)
-                                           int P, int c, int nn, int A, int K, int Co,
-                                           float sigma) {
-  extern __shared__ float smem[];
-  float* gx = smem;             // nn * 3
-  float* ws = gx + nn * 3;      // A * K, bf16-rounded neighbour sums
-  float* wp = ws + A * K;       // K * Co, W as float
-  const int p = blockIdx.x, b = blockIdx.y;
-  const size_t bp = static_cast<size_t>(b) * c + p;
-  load_offsets(xyz + static_cast<size_t>(b) * P * 3, centers + bp * 3, nbr + bp * nn, nn,
-               gx, nullptr);
-  for (int e = threadIdx.x; e < K * Co; e += blockDim.x) wp[e] = etch_f32(w[e]);
-  __syncthreads();
-  for (int e = threadIdx.x; e < A * K; e += blockDim.x) {
-    const float rv[3] = {rk[3 * e], rk[3 * e + 1], rk[3 * e + 2]};
-    float acc = 0.f;
-    for (int n = 0; n < nn; ++n) acc += kernel_weight(gx + 3 * n, rv, sigma);
-    ws[e] = etch_round_bf16(acc);
+// Occupancy conv with its (K -> Co) projection, expanded form.  Replaces
+// etch_tpu/nn/pallas_interconv.py:_kernel_ones_proj.  Bound on the H100: FP32
+// issue.  Each center sums nn * A * K weights (92 K at nn = 64, A * K = 1440;
+// 377 M in a 512-center chunk at B = 8), and a weight evaluated as
+// kernel_weight does it (differences, squares, an IEEE division by sigma,
+// three scalar loads of the offset) costs some 20 instructions.  Design:
+//   - The weight in the expanded form of the TPU kernel
+//     (pallas_interconv.py:89-111,160-172):
+//       w = relu(x . (2 r s) + (1 - |r|^2 s) - |x|^2 s),  s = 1 / sigma,
+//     which is the direct form's 1 - |x - r|^2 / sigma with the sums taken
+//     in another order (f32 rounding of a few units of |x|^2 / sigma).
+//   - relu(u - xx) = max(u, xx) - xx with u = x . (2 r s) + 1 - |r|^2 s and
+//     xx = |x|^2 s, and the xx do not depend on the column: a column's sum
+//     is sum_n max(u_n, xx_n) - sum_n xx_n, the second sum once a center.
+//     That is 3 FFMA, FMNMX and FADD a weight.  Both sums are f32 over the
+//     neighbours in index order; they are at most a few times the result
+//     (|x| < radius, so xx < 2 at sigma = radius^2 / 2), and their rounding
+//     stays some hundred times below the bf16 rounding of t.
+//   - A thread keeps kOccCols (a, k) columns' constants, 2 r s and
+//     1 - |r|^2 s, and their places in the sums' matrix in registers; the
+//     block's threads split the A * K columns evenly (1440 = 288 threads x
+//     5).  Per neighbour one broadcast LDS.128 of (x, y, z, xx) feeds all of
+//     a thread's columns.
+//   - A block takes several consecutive centers (as many as make one wave of
+//     resident blocks), so the constants, W and the setup are paid once for
+//     all of them.
+//   - The sums, rounded to bf16, stay in shared memory as a (64, Kp) A
+//     matrix (anchors padded to 64, kernel points to Kp, a multiple of 16,
+//     with zeros); the projection o = t W runs as bf16 mma.sync m16n8k16
+//     with f32 accumulators, W (Kp, Cop) from shared memory by
+//     ldmatrix.trans (rows padded by 8 elements: no bank conflicts).
+//   - The (A, Co) bf16 output is staged in shared memory and leaves as
+//     16-byte stores of whole rows.
+constexpr int kOccCols = 5;          // (a, k) columns a thread
+constexpr int kOccMaxThreads = 512;
+
+__host__ __device__ __forceinline__ int occ_round(int x, int m) { return (x + m - 1) / m * m; }
+
+// grid (ceil(c / cpb), B); block occ_threads(A K) (a multiple of 32, at most
+// kOccMaxThreads); centers cpb blockIdx.x .. + cpb - 1.  A <= 64.
+__global__ void __launch_bounds__(kOccMaxThreads)
+interconv_ones_proj_kernel(const float* __restrict__ xyz,      // (B, P, 3)
+                           const float* __restrict__ centers,  // (B, c, 3)
+                           const int32_t* __restrict__ nbr,    // (B, c, nn)
+                           const float* __restrict__ rk,       // (A*K, 3)
+                           const bf16* __restrict__ w,         // (K, Co)
+                           bf16* __restrict__ out,             // (B, c, A*Co)
+                           int P, int c, int nn, int A, int K, int Co, float sigma, int cpb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Kp = occ_round(K, 16), Cop = occ_round(Co, 16);
+  const int ldt = Kp + 8, ldw = Cop + 8;
+  float4* nb = reinterpret_cast<float4*>(smem_raw);   // (x, y, z, |x|^2 s)
+  bf16* ts = reinterpret_cast<bf16*>(nb + nn);        // (64, ldt): bf16(t), zero-padded
+  bf16* ws = ts + 64 * ldt;                            // (Kp, ldw): W, zero-padded
+  bf16* st = ws + Kp * ldw;                            // (64, ldw): the output, staged
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int b = blockIdx.y;
+  const float is = 1.f / sigma;
+  const float* xb = xyz + static_cast<size_t>(b) * P * 3;
+  for (int e = tid; e < 32 * ldt; e += nthr) reinterpret_cast<uint32_t*>(ts)[e] = 0u;
+  for (int kr = 0; kr < Kp; ++kr)
+    for (int co = tid; co < Cop; co += nthr)
+      ws[kr * ldw + co] = kr < K && co < Co ? w[kr * Co + co] : __float2bfloat16(0.f);
+
+  // this thread's columns in round r (columns kOccCols nthr r ..):
+  // constants and places in the sums' matrix (-1: none).  One round takes
+  // every column up to A * K = kOccCols * kOccMaxThreads (the main path's
+  // 1440 in one); the constants then stay for all the block's centers.
+  const int AK = A * K, rounds = (AK + kOccCols * nthr - 1) / (kOccCols * nthr);
+  float ax[kOccCols], ay[kOccCols], az[kOccCols], cc[kOccCols];
+  int place[kOccCols];
+  const auto columns = [&](int r) {
+#pragma unroll
+    for (int i = 0; i < kOccCols; ++i) {
+      const int e = (r * kOccCols + i) * nthr + tid;
+      if (e < AK) {
+        const float rx = rk[3 * e], ry = rk[3 * e + 1], rz = rk[3 * e + 2];
+        ax[i] = 2.f * rx * is;
+        ay[i] = 2.f * ry * is;
+        az[i] = 2.f * rz * is;
+        cc[i] = 1.f - (rx * rx + ry * ry + rz * rz) * is;
+        place[i] = (e / K) * ldt + e % K;
+      } else {   // no column
+        ax[i] = ay[i] = az[i] = cc[i] = 0.f;
+        place[i] = -1;
+      }
+    }
+  };
+  columns(0);
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t2 = 2 * (lane & 3);
+  const int n16s = Cop / 16;
+
+  const int p_end = min(c, (blockIdx.x + 1) * cpb);
+  for (int p = blockIdx.x * cpb; p < p_end; ++p) {
+    const size_t bp = static_cast<size_t>(b) * c + p;
+    const float* ctr = centers + bp * 3;
+    const int32_t* nbp = nbr + bp * nn;
+    __syncthreads();   // the previous center's sums and output are spent
+    for (int n = tid; n < nn; n += nthr) {
+      const int j = nbp[n];
+      const float x = xb[3 * j] - ctr[0], y = xb[3 * j + 1] - ctr[1], z = xb[3 * j + 2] - ctr[2];
+      nb[n] = make_float4(x, y, z, (x * x + y * y + z * z) * is);
+    }
+    __syncthreads();
+    for (int r = 0; r < rounds; ++r) {
+      if (rounds > 1) columns(r);
+      float acc[kOccCols], sxx = 0.f;
+#pragma unroll
+      for (int i = 0; i < kOccCols; ++i) acc[i] = 0.f;
+#pragma unroll 4
+      for (int n = 0; n < nn; ++n) {
+        const float4 v = nb[n];
+        sxx += v.w;
+#pragma unroll
+        for (int i = 0; i < kOccCols; ++i)
+          acc[i] += fmaxf(fmaf(v.x, ax[i], fmaf(v.y, ay[i], fmaf(v.z, az[i], cc[i]))), v.w);
+      }
+#pragma unroll
+      for (int i = 0; i < kOccCols; ++i)
+        if (place[i] >= 0) ts[place[i]] = __float2bfloat16(acc[i] - sxx);
+    }
+    __syncthreads();
+
+    // o (64 x Cop) = bf16(t) (64 x Kp) W (Kp x Cop): a warp a 16 x 16 tile
+    for (int tt = warp; tt < 4 * n16s; tt += nthr >> 5) {
+      const int r0 = 16 * (tt / n16s), n0 = 16 * (tt % n16s);
+      float o[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      for (int kt = 0; kt < Kp / 16; ++kt) {
+        uint32_t a[4], bb[4];
+        etch_ldsm_x4(a, ts + (r0 + (lane & 15)) * ldt + 16 * kt + (lane >> 4) * 8);
+        etch_ldsm_x4_trans(bb, ws + (16 * kt + (lane & 15)) * ldw + n0 + (lane >> 4) * 8);
+        etch_mma_16816(o[0], a, bb[0], bb[1]);
+        etch_mma_16816(o[1], a, bb[2], bb[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint32_t*>(st + (r0 + g + 8 * h) * ldw + n0 + 8 * j + t2) =
+              etch_pack_bf16(o[j][2 * h], o[j][2 * h + 1]);
+    }
+    __syncthreads();
+    bf16* ob = out + bp * static_cast<size_t>(A) * Co;
+    if (Co % 8 == 0) {   // 16-byte stores of whole rows
+      const int per_row = Co / 8;
+      for (int e = tid; e < A * per_row; e += nthr) {
+        const int a = e / per_row, c8 = 8 * (e % per_row);
+        *reinterpret_cast<uint4*>(ob + a * Co + c8) =
+            *reinterpret_cast<const uint4*>(st + a * ldw + c8);
+      }
+    } else {
+      for (int e = tid; e < A * Co; e += nthr) ob[e] = st[(e / Co) * ldw + e % Co];
+    }
   }
-  __syncthreads();
-  bf16* ob = out + bp * static_cast<size_t>(A) * Co;
-  for (int e = threadIdx.x; e < A * Co; e += blockDim.x) {
-    const int a = e / Co, o = e % Co;
-    const float* wr = ws + a * K;
-    float acc = 0.f;
-    for (int k = 0; k < K; ++k) acc = fmaf(wr[k], wp[k * Co + o], acc);
-    ob[e] = __float2bfloat16(acc);
-  }
+}
+
+__host__ __forceinline__ int occ_threads(int AK) {
+  const int t = occ_round((AK + kOccCols - 1) / kOccCols, 32);
+  return t < kOccMaxThreads ? t : kOccMaxThreads;
+}
+
+__host__ __forceinline__ size_t occ_smem_bytes(int nn, int K, int Co) {
+  const int Kp = occ_round(K, 16), Cop = occ_round(Co, 16);
+  return static_cast<size_t>(nn) * 16 +
+         (64 * static_cast<size_t>(Kp + 8) + static_cast<size_t>(Kp + 64) * (Cop + 8)) *
+             sizeof(bf16);
 }
 
 // grid (c, B); one thread per (a, k) output column.  T: feature and output
@@ -716,17 +846,30 @@ ETCH_API int etch_interconv_ones(const float* xyz, const float* centers, const i
 }
 
 // Occupancy conv with the fused (K -> Co) projection: w (K, Co) bf16,
-// out (b, c, A*Co) bf16.
+// out (b, c, A*Co) bf16.  A <= 64.
 ETCH_API int etch_interconv_ones_proj(const float* xyz, const float* centers,
                                       const int32_t* nbr, const float* rk, const void* w,
                                       void* out, int b, int P, int c, int nn, int A, int K,
                                       int Co, float sigma, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(nn) * 3 + A * K + K * Co) * sizeof(float);
+  if (A < 1 || A > 64 || K < 1 || Co < 1 || nn < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = occ_smem_bytes(nn, K, Co);
+  const int threads = occ_threads(A * K);
   cudaError_t err = etch_allow_smem(interconv_ones_proj_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  interconv_ones_proj_kernel<<<dim3(c, b), 256, smem, stream>>>(
+  if (b == 0 || c == 0) return 0;
+  // centers a block: as many as give one wave of resident blocks
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, interconv_ones_proj_kernel,
+                                                           threads, smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  const long long wave = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const int cpb = static_cast<int>((static_cast<long long>(b) * c + wave - 1) / wave);
+  interconv_ones_proj_kernel<<<dim3((c + cpb - 1) / cpb, b), threads, smem, stream>>>(
       xyz, centers, nbr, rk, static_cast<const bf16*>(w), static_cast<bf16*>(out), P, c, nn, A,
-      K, Co, sigma);
+      K, Co, sigma, cpb);
   return static_cast<int>(cudaGetLastError());
 }
 

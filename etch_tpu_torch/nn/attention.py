@@ -30,7 +30,8 @@ import torch
 from etch_tpu_torch import _build
 from etch_tpu_torch.nn.bf16 import BF16, rnd
 
-_MAX_HS = 128   # widest head csrc/attention.cu takes (heads run in groups of <= 128 columns)
+_MAX_HS = 256   # widest head csrc/attention.cu takes (heads run in groups of <= 128
+                # columns; a wider head is a group of its own, one point a block)
 _MAX_L = 64     # tokens a point: one 64-row tile of queries and keys
 
 
@@ -57,7 +58,8 @@ def attention_cuda(q, k, v, num_heads: int):
     One 64-row tile of queries and keys a point (4 warps, 16 query rows
     each; keys L..63 masked), so L <= 64 (the direction head's 60 anchors);
     a longer L raises.  Any head count that divides E into heads of at
-    most 128 columns; the heads run in groups of at most 128 columns."""
+    most 256 columns; the heads run in groups of at most 128 columns, or
+    one head a group above that."""
     device = _build.check_cuda("attention", (q, BF16), (k, BF16), (v, BF16))
     Bc, L, E = q.shape
     if k.shape != q.shape or v.shape != q.shape:

@@ -40,9 +40,10 @@ from etch_tpu_torch.nn.bf16 import BF16, mm, rnd
 _ROWS, _E, _V = 64, 64, 128
 _HEAD_SIZES = (1, 2, 4, 8, 16)
 # csrc/dircore_wide.cu (weights from device memory) takes the rest: E and V
-# zero-padded to 128 or 256, head sizes powers of two up to 128
-_WIDE = (128, 256)
-_WIDE_HEAD_SIZES = (1, 2, 4, 8, 16, 32, 64, 128)
+# zero-padded to 128, 256 or 512, head sizes 1, 2, 4, 8 and multiples of 16
+# up to 256
+_WIDE = (128, 256, 512)
+_WIDE_MAX_HS = 256
 _ROW_PAD = 8   # the kernel's shared-memory rows hold 8 more bf16 than the matrix
 # packed weight matrices, in the kernel's order: name -> (rows, columns)
 _W_LAYOUT = {**{n: (_E, _E) for n in ("wq0", "wk0", "wv0", "wc0", "wq1", "wk1", "wv1")},
@@ -110,6 +111,34 @@ def _pad(t, *shape):
     return F.pad(t, pads)
 
 
+def padded_head_size(hs: int) -> int:
+    """The head size the kernels run a head of hs columns at: the next power
+    of two up to 16, above that the next multiple of 16."""
+    return 1 << (hs - 1).bit_length() if hs <= 16 else -(-hs // 16) * 16
+
+
+def head_layout(params, num_heads: int, hs: int, hp: int):
+    """The weights with q, k and v in the kernels' head layout: head h's
+    columns of wq, wk and wv, and its rows of wc, at h*hp .. h*hp + hs - 1,
+    zero up to h*hp + hp - 1.  Exact: a padded column of q and k adds 0 to
+    every logit, and a padded column of v gives a zero column of the
+    attention output, which meets a zero row of wc.  The caller keeps the
+    scale 1/sqrt(hs)."""
+    if hp == hs:
+        return params
+    cols = (torch.arange(num_heads)[:, None] * hp + torch.arange(hs)).reshape(-1)
+    out = dict(params)
+    for l in range(_num_layers(params)):
+        for nm in ("wq", "wk", "wv"):
+            w = params[f"{nm}{l}"]
+            out[f"{nm}{l}"] = w.new_zeros(w.shape[0], num_heads * hp).index_copy(
+                1, cols.to(w.device), w)
+        w = params[f"wc{l}"]
+        out[f"wc{l}"] = w.new_zeros(num_heads * hp, w.shape[1]).index_copy(
+            0, cols.to(w.device), w)
+    return out
+
+
 def pack_weights(params, device):
     """The kernel's weight image: w, the bf16 matrices of `_W_LAYOUT` in
     order, each zero-padded to the compiled widths and each row to width +
@@ -153,11 +182,12 @@ def pack_weights_wide(params, device, Ep: int, Vp: int):
 def direction_core_cuda(tokens, params, num_heads: int):
     """The kernel: tokens (M, A, E) bf16 on the card, two layers ->
     (M, A) f32 anchor weights (br added here, as the TPU kernel's caller
-    does).  E <= 64 with V <= 128 and a head size up to 16 runs
-    `csrc/dircore.cu` (weights in shared memory); wider tokens, up to E = 256
-    and V = 256 with a head size a power of two up to 128 (every width the
-    reference's EPN blocks give, at any head count that splits them so),
-    run `csrc/dircore_wide.cu`."""
+    does).  Any head count that divides E: each head runs at
+    `padded_head_size` in the head layout of `head_layout`, whose width is
+    num_heads times that.  Where E and that width are at most 64, V at most
+    128 and the padded head at most 16, `csrc/dircore.cu` runs it (weights
+    in shared memory); otherwise `csrc/dircore_wide.cu`, for E, the head
+    layout and V up to 512 and heads up to 256 columns."""
     device = _build.check_cuda("dircore", (tokens, BF16))
     M, A, E = tokens.shape
     V = params["wm0"].shape[0]
@@ -165,27 +195,33 @@ def direction_core_cuda(tokens, params, num_heads: int):
     n_layers = _num_layers(params)
     if n_layers != 2:
         raise ValueError(f"dircore: the kernel runs 2 layers, got {n_layers}")
-    if hs * num_heads != E or A > _ROWS:
+    if num_heads < 1 or hs * num_heads != E or A > _ROWS:
         raise ValueError(f"dircore: needs A <= {_ROWS} and a head count that divides E; "
                          f"got A={A}, E={E}, {num_heads} heads")
-    if E > _E or V > _V or hs not in _HEAD_SIZES:
-        Ep = next((w for w in _WIDE if E <= w), None)
-        Vp = next((w for w in _WIDE if V <= w), None)
-        if Ep is None or Vp is None or hs not in _WIDE_HEAD_SIZES or Ep % hs:
-            raise ValueError(f"dircore: needs E <= {_WIDE[-1]}, V <= {_WIDE[-1]} and a head "
-                             f"size in {_WIDE_HEAD_SIZES}; got E={E}, V={V}, {num_heads} heads")
+    hp = padded_head_size(hs)
+    Eh = num_heads * hp
+    scale = 1.0 / math.sqrt(hs)
+    params = head_layout(params, num_heads, hs, hp)
+    if max(E, Eh) > _E or V > _V or hp not in _HEAD_SIZES:
+        Vp = next((w for w in _WIDE if V <= w), 0)
+        # the kernel's hidden layer runs at most max(Ep, 256) wide: E is
+        # zero-padded to 512 for V above 256
+        Ep = next((w for w in _WIDE if max(E, Eh) <= w and Vp <= max(w, 256)), None)
+        if Ep is None or not Vp or hp > _WIDE_MAX_HS:
+            raise ValueError(f"dircore: needs E, V and the head layout (heads of {hs} columns "
+                             f"run at {hp}) at most {_WIDE[-1]} wide, heads at most "
+                             f"{_WIDE_MAX_HS}; got E={E}, V={V}, {num_heads} heads")
         w, f = pack_weights_wide(params, device, Ep, Vp)
         x = tokens if E == Ep else _pad(tokens, M, A, Ep).contiguous()
         out = torch.empty((M, A), dtype=torch.float32, device=device)
         _build.launch("dircore", "etch_dircore_wide", device, _build.ptr(x), _build.ptr(w),
-                      _build.ptr(f), _build.ptr(out), M, A, Ep, Vp, hs, 1.0 / math.sqrt(hs))
+                      _build.ptr(f), _build.ptr(out), M, A, Ep, Vp, num_heads, hp, scale)
         return out + params["br"].to(device=device, dtype=torch.float32)
     w, f = pack_weights(params, device)
     x = tokens if E == _E else _pad(tokens, M, A, _E).contiguous()
     out = torch.empty((M, A), dtype=torch.float32, device=device)
     _build.launch("dircore", "etch_dircore", device, _build.ptr(x), _build.ptr(w),
-                  _build.ptr(f), _build.ptr(out), M, A, num_heads, hs,
-                  1.0 / math.sqrt(hs))
+                  _build.ptr(f), _build.ptr(out), M, A, num_heads, hp, scale)
     return out + params["br"].to(device=device, dtype=torch.float32)
 
 

@@ -4,7 +4,8 @@ Port of `etch_tpu/ops/knn.py`.  `knn` dispatches on the device of its
 inputs: CUDA tensors launch the hand-written kernel (`csrc/knn.cu`,
 replacing `etch_tpu/ops/pallas_knn.py:knn_pallas`), CPU tensors run
 `knn_torch`.  Both rank by direct-difference squared distance with the
-smaller index first on ties, as the TPU kernel does.
+smaller index first on ties, as the TPU kernel does.  The kernel takes any
+1 <= k <= N (above 32 in passes of 32).
 """
 
 from __future__ import annotations
@@ -12,8 +13,6 @@ from __future__ import annotations
 import torch
 
 from etch_tpu_torch import _build
-
-_KNN_MAX_K = 32  # largest register top-k bucket in csrc/knn.cu
 
 
 def pairwise_sqdist(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -41,7 +40,7 @@ def knn_cuda(query: torch.Tensor, support: torch.Tensor, k: int):
                                (support, torch.float32))
     B, M, _ = query.shape
     N = support.shape[1]
-    if support.shape[0] != B or not 1 <= k <= min(N, _KNN_MAX_K):
+    if support.shape[0] != B or not 1 <= k <= N:
         raise ValueError(f"knn: bad shapes {tuple(query.shape)}, "
                          f"{tuple(support.shape)}, k={k}")
     idx = torch.empty((B, M, k), dtype=torch.int32, device=device)

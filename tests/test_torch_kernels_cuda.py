@@ -26,6 +26,7 @@ from etch_tpu_torch.geometry.icosahedral import get_anchors
 from etch_tpu_torch.geometry.kernel_points import get_kernel_points
 from etch_tpu_torch.models.etch_net import DirectionHead, init_params
 from etch_tpu_torch.nn import attention, dircore, grouped_head, interconv, vector_attention
+from etch_tpu_torch.ops.grouping import gather_points
 
 # the modules themselves: etch_tpu_torch.ops re-exports same-named functions
 ball_query = importlib.import_module("etch_tpu_torch.ops.ball_query")
@@ -84,7 +85,7 @@ def test_fps_kernel_any_n(cuda):
     assert torch.equal(out, fps.fps_torch(xyz, 2000))
 
 
-@pytest.mark.parametrize("k", [1, 3, 8, 16, 20])
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 20, 33, 48, 100])
 def test_knn_kernel(cuda, k):
     q, s = _cloud(cuda, 2, 700, 1), _cloud(cuda, 2, 1500, 2)
     idx, d2 = knn.knn_cuda(q, s, k)
@@ -98,6 +99,84 @@ def test_knn_kernel_ties_go_to_smaller_index(cuda):
     q = torch.zeros((1, 5, 3), device=cuda)
     idx, _ = knn.knn_cuda(q, s, 8)
     assert torch.equal(idx.cpu(), torch.arange(8, dtype=torch.int32).expand(1, 5, 8))
+
+
+def _capsules(dev, B, N, seed):
+    """Body-scan-like clouds, as chip_smoke.py's (points on a vertical capsule)."""
+    g = np.random.RandomState(seed)
+    z, th = g.uniform(-0.9, 0.9, (B, N)), g.uniform(0, 2 * np.pi, (B, N))
+    r = 0.15 + 0.03 * np.cos(3 * z)
+    return torch.from_numpy(np.stack([r * np.cos(th), r * np.sin(th), z], -1).astype(np.float32)).to(dev)
+
+
+# a request's kNN shapes (k, queries, supports), as chip_smoke.py times them:
+# each U-Net level's self neighbours, the down neighbours of levels 1-4, the
+# up 3-NN of levels 0-3 (5000 x 1250 k = 3 also propagates the EPN's features)
+_LV = (5000, 1250, 312, 78, 19)
+_KNN_REQUEST = ([(8, 5000, 5000), (16, 1250, 5000), (3, 5000, 1250)]
+                + [(16, _LV[l], _LV[l]) for l in range(1, 5)]
+                + [(16, _LV[l], _LV[l - 1]) for l in range(2, 5)]
+                + [(3, _LV[l], _LV[l + 1]) for l in range(1, 4)])
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("k,M,N", _KNN_REQUEST)
+def test_knn_kernel_request_shapes(cuda, B, k, M, N):
+    """Every shape a request launches kNN at, at B = 1 (the latency
+    request, where the lane groups are widest) and B = 8: indices and
+    squared distances equal knn_torch's."""
+    q, s = _capsules(cuda, B, M, k + M), _capsules(cuda, B, N, k + N + 1)
+    idx, d2 = knn.knn_cuda(q, s, k)
+    ridx, rd2 = knn.knn_torch(q, s, k)
+    assert torch.equal(idx, ridx)
+    assert torch.equal(d2, rd2)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("k,M,N", [(33, 1250, 5000), (48, 1250, 5000), (48, 312, 1250),
+                                   (64, 78, 312), (19, 19, 19), (48, 48, 48)])
+def test_knn_kernel_many_neighbours(cuda, B, k, M, N):
+    """k above one register list (32): passes of 32, each after the last
+    (d2, index) of the one before, up to k = N."""
+    q, s = _capsules(cuda, B, M, k + 7), _capsules(cuda, B, N, k + 8)
+    before = _build.launches["knn"]
+    idx, dist = knn.knn(q, s, k)
+    assert _build.launches["knn"] == before + 1
+    ridx, rd2 = knn.knn_torch(q, s, k)
+    assert torch.equal(idx, ridx)
+    assert torch.equal(dist, torch.sqrt(rd2))
+
+
+@pytest.mark.parametrize("k", [8, 33, 48])
+def test_knn_kernel_ties_at_any_k(cuda, k):
+    """A lattice (every query on a lattice point, many supports at exactly
+    equal distances) and duplicated points: ties go to the smaller index
+    within and across the lanes of a group and across passes."""
+    g = np.stack(np.meshgrid(*[np.arange(8, dtype=np.float32) * 0.125] * 3, indexing="ij"), -1)
+    lat = g.reshape(-1, 3)
+    s = np.concatenate([lat, lat[::7]])[np.random.RandomState(k).permutation(len(lat) + 74)]
+    s = torch.from_numpy(np.ascontiguousarray(s)).to(cuda)[None].repeat(2, 1, 1).contiguous()
+    q = s[:, :300].contiguous()
+    idx, d2 = knn.knn_cuda(q, s, k)
+    ridx, rd2 = knn.knn_torch(q, s, k)
+    assert torch.equal(idx, ridx)
+    assert torch.equal(d2, rd2)
+    zeros = torch.zeros((1, 100, 3), device=cuda)
+    idx, _ = knn.knn_cuda(zeros[:, :5].contiguous(), zeros, k)
+    assert torch.equal(idx.cpu(), torch.arange(k, dtype=torch.int32).expand(1, 5, k))
+
+
+@pytest.mark.parametrize("offset", [1.0, 100.0, 3000.0])
+def test_knn_kernel_far_from_origin(cuda, offset):
+    """Clouds far from the origin, where the prefilter's expanded form
+    cancels most: its proven margin (csrc/knn.cu:bound_adjust) loses no
+    neighbour."""
+    q, s = _capsules(cuda, 2, 1250, 3) + offset, _capsules(cuda, 2, 5000, 4) + offset
+    for k in (3, 16, 40):
+        idx, d2 = knn.knn_cuda(q, s, k)
+        ridx, rd2 = knn.knn_torch(q, s, k)
+        assert torch.equal(idx, ridx)
+        assert torch.equal(d2, rd2)
 
 
 @pytest.mark.parametrize("nsample", [4, 64])
@@ -189,6 +268,44 @@ def test_interconv_ones_proj_kernel(cuda):
     _close_bf16(out, ref)
 
 
+@pytest.mark.parametrize("c", [512, 452])
+def test_interconv_ones_proj_request_chunks(cuda, c):
+    """conv0 of a request: 512-center chunks of the 2500 FPS centers of a
+    5000-point cloud and the ragged last one (452), 64 neighbours, Co = 32,
+    against the plain version by the bf16 criterion."""
+    from etch_tpu_torch.utils.config import EtchConfig, backbone_plan
+    spec = backbone_plan(EtchConfig(num_point=5000, batch_size=2))[0][0]
+    xyz = _capsules(cuda, 2, 5000, 9)
+    ctr = gather_points(xyz, fps.fps_cuda(xyz, 2500))[:, :c].contiguous()
+    nn, radius, sigma = spec["n_neighbor"], spec["radius"], spec["sigma"]
+    nbr = ball_query.ball_query_cuda(ctr, xyz, radius, nn)
+    rk = torch.from_numpy(np.einsum("aij,kj->aki", get_anchors(), get_kernel_points(radius, 1))
+                          .reshape(-1, 3).copy()).to(cuda)
+    w = torch.randn((24, spec["dim_out"]), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(c)) * 0.3
+    before = _build.launches["interconv_ones_proj"]
+    out = interconv.interconv_ones_proj(xyz, ctr, nbr, rk, sigma, 60, w)
+    assert _build.launches["interconv_ones_proj"] == before + 1
+    assert out.shape == (2, c, 60, spec["dim_out"]) and out.dtype == torch.bfloat16
+    _close_bf16(out, interconv.interconv_ones_proj_torch(xyz, ctr, nbr, rk, sigma, 60, w))
+
+
+@pytest.mark.parametrize("Co", [1, 8, 32, 40, 64])
+@pytest.mark.parametrize("kernel_size", [1, 2, 3])
+def test_interconv_ones_proj_widths(cuda, Co, kernel_size):
+    """Projections to 1 (an EPN schedule whose first conv has one channel), 8
+    and 40 (no 16-byte rows: element stores) and 64 channels; 30 kernel
+    points (kernel_size 2) padded to 32, and 66 (kernel_size 3: 3960
+    columns, two rounds of a thread's columns)."""
+    xyz, ctr, nbr, _, _, sigma = _conv_inputs(cuda, 0)
+    kp = get_kernel_points(0.2, kernel_size)
+    rk = torch.from_numpy(np.einsum("aij,kj->aki", get_anchors(), kp).reshape(-1, 3).copy()).to(cuda)
+    w = torch.randn((kp.shape[0], Co), device=cuda, generator=torch.Generator(cuda).manual_seed(Co))
+    out = interconv.interconv_ones_proj_cuda(xyz, ctr, nbr, rk, sigma, 60, w)
+    assert out.shape == (2, 100, 60, Co)
+    _close_bf16(out, interconv.interconv_ones_proj_torch(xyz, ctr, nbr, rk, sigma, 60, w))
+
+
 def _dircore_params(dev, E, V, seed=3):
     g = np.random.RandomState(seed)
     p = {}
@@ -225,6 +342,28 @@ def test_dircore_kernel(cuda, E, V, H):
     before = _build.launches["dircore"]
     out = dircore.direction_core(tok, params, H, chunk=16)
     assert _build.launches["dircore"] == before + 1
+    _check_dircore(out, tok, params, H)
+
+
+@pytest.mark.parametrize("E,V,H", [(48, 128, 8), (24, 64, 8), (40, 128, 5), (48, 128, 2),
+                                   (256, 128, 1), (200, 128, 1), (512, 128, 8),
+                                   (512, 512, 8), (320, 256, 5), (128, 512, 8),
+                                   (96, 128, 2), (480, 128, 10)])
+def test_dircore_kernel_any_heads_and_widths(cuda, E, V, H):
+    """Head sizes the kernels do not compile (6, 3, 8 of 40, 24, 200) run
+    padded by zero columns in the head layout; heads of 48 and 208 columns,
+    which do not tile the padded width, at E = 128, 256 and 512 (the
+    instance for multiples of 16 that are no power of two); one head of
+    256 (16 k16 steps); E and V up to 512 (the wide core's weights read from the L2,
+    tokens beyond its registers spilled; E = 128 with V = 512 runs at the
+    512-wide instance)."""
+    params = _dircore_params(cuda, E, V)
+    tok = torch.from_numpy(np.random.RandomState(E + H).randn(200, 60, E).astype(np.float32))
+    tok = tok.to(cuda, torch.bfloat16)
+    before = _build.launches["dircore"]
+    out = dircore.direction_core(tok, params, H, chunk=64)
+    assert _build.launches["dircore"] == before + 1
+    assert out.shape == (200, 60) and torch.isfinite(out).all()
     _check_dircore(out, tok, params, H)
 
 
@@ -297,6 +436,20 @@ def test_attention_kernel_head_sizes(cuda, M, hs, E):
                      for s in range(0, n, M)])
     assert _build.launches["attention"] == before + n // M
     assert out.shape == (n, 60, E)
+    _close_bf16(out, attention.attention_torch(q, k, v, H))
+
+
+@pytest.mark.parametrize("E,H", [(256, 1), (400, 2), (512, 2), (200, 1)])
+@pytest.mark.parametrize("M", [1, 133, 2048])
+def test_attention_kernel_heads_above_128(cuda, M, E, H):
+    """Heads of 256, 200 (padded to 208) and 256 columns two a point: one
+    head a group, one point a block."""
+    n = 64 if M == 1 else M
+    q, k, v = _qkv(cuda, n, 60, E, H, seed=E + M)
+    before = _build.launches["attention"]
+    out = torch.cat([attention.attention_cuda(q[s:s + M], k[s:s + M], v[s:s + M], H)
+                     for s in range(0, n, M)])
+    assert _build.launches["attention"] == before + n // M
     _close_bf16(out, attention.attention_torch(q, k, v, H))
 
 
@@ -559,4 +712,40 @@ def test_deeper_epn_serves_on_the_card(cuda, layers, route):
     cfg = EtchConfig(num_point=1024, batch_size=2, epn_layer_num=layers,
                      use_bfloat16=route != "f32")
     chip_smoke.small_step(torch, _build, f"epn_layer_num={layers} {route}", cfg, route,
+                          fused_core=route != "bf16_chunked", full_width=True)
+
+
+# the widths the JAX package takes that the card refused before: one
+# direction head at epn_layer_num=4 (a head of 256), a 512-wide last EPN block,
+# a head size of 6, a U-Net level with 48 neighbours
+_REPAIRED = {
+    "one head, layers 4, bf16": (dict(epn_layer_num=4, dir_num_heads=1, use_bfloat16=True),
+                                 "bf16"),
+    "one head, layers 4, bf16 chunked": (dict(epn_layer_num=4, dir_num_heads=1,
+                                              use_bfloat16=True), "bf16_chunked"),
+    "512-wide last block, bf16": (dict(epn_mlps=((32, 32), (512, 512)), use_bfloat16=True),
+                                  "bf16"),
+    "512-wide last block, bf16 chunked": (dict(epn_mlps=((32, 32), (512, 512)),
+                                               use_bfloat16=True), "bf16_chunked"),
+    "head size 6, bf16": (dict(epn_mlps=((32, 32), (48, 48)), use_bfloat16=True), "bf16"),
+    "head size 6, bf16 chunked": (dict(epn_mlps=((32, 32), (48, 48)), use_bfloat16=True),
+                                  "bf16_chunked"),
+    "48 neighbours, f32": (dict(unet_nsamples=(8, 48, 16, 16, 16)), "f32"),
+    "48 neighbours, bf16": (dict(unet_nsamples=(8, 48, 16, 16, 16), use_bfloat16=True),
+                            "bf16"),
+}
+
+
+@pytest.mark.parametrize("variant", list(_REPAIRED))
+def test_repaired_widths_serve_on_the_card(cuda, variant):
+    """Each configuration at num_point=1024, B=2, random weights, serves on
+    the card without a raise, launching its path's kernels, and is as
+    accurate as the CPU: in f32 by chip_smoke.py's phase-4 tolerances, in
+    bf16 as accurate as the CPU's bf16 step against the f32 one
+    (AS_ACCURATE_STEP, directions included)."""
+    import chip_smoke
+    from etch_tpu_torch.utils.config import EtchConfig
+    overrides, route = _REPAIRED[variant]
+    cfg = EtchConfig(num_point=1024, batch_size=2, **overrides)
+    chip_smoke.small_step(torch, _build, variant, cfg, route,
                           fused_core=route != "bf16_chunked", full_width=True)

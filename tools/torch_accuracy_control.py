@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Planted faults against chip_smoke.py's as-accurate rule (`AS_ACCURATE`).
+"""Planted faults against chip_smoke.py's as-accurate rules (`AS_ACCURATE`,
+`AS_ACCURATE_STEP`).
 
 Where bf16 rounding flips break the 1e-3 median criterion (a full-width bf16
 serving step, card against CPU; the direction core at E = 256), chip_smoke.py
@@ -13,7 +14,9 @@ each copy, on the card:
   - serves EtchConfig(epn_layer_num=4, use_bfloat16=True) at N=1024, B=2
     (the 128- and 256-channel contraction slices and the E = 256 wide
     direction core) and judges it by `chip_smoke.bf16_step_accuracy`
-    against the CPU's bf16 and f32 steps, served once beforehand;
+    against the CPU's bf16 and f32 steps, served once beforehand:
+    confidences, vector lengths and the direction head's output (median
+    angle from the f32 step's, `chip_smoke.direction_accuracy`);
   - runs the wide core at E = 256 on 2048 points against its plain twin and
     the unrounded function (`chip_smoke.as_accurate`, as phase 3 does);
   - runs the bf16 contraction at C = 128 against its plain version
@@ -76,15 +79,26 @@ MUTANTS = {
         "dircore_wide.cu",
         "= part[h] + u[d.Vp];",
         "= (part[h] + u[d.Vp]) * 1.01f;"),
+    "attention_drop_key": (   # every per-head attention loses its last key
+        "common.cuh",
+        "if (8 * jt + t2 + (e & 1) >= L) s[jt][e] = -INFINITY;",
+        "if (8 * jt + t2 + (e & 1) >= L - 1) s[jt][e] = -INFINITY;"),
 }
 
 
 def serve(cfg, device):
+    """run_batch's outputs that the step is judged by, with the direction
+    head's unit directions (captured by a forward hook, as chip_smoke does)."""
     from etch_tpu_torch.pipeline import build_pipeline
     pipe = build_pipeline(cfg, chip_smoke.MARKERSET, allow_synthetic_body=True, rng_seed=0,
                           device=device)
+    seen = {}
+    hook = pipe.model.direction_head.register_forward_hook(
+        lambda _m, _i, o: seen.update(direction=o))
     out = pipe.run_batch(chip_smoke.capsule_clouds(cfg.batch_size, cfg.num_point, seed=3))
-    return {k: out[k].cpu() for k in ("confidences", "vectors", "part_labels")}
+    hook.remove()
+    return {**{k: out[k].cpu() for k in ("confidences", "vectors", "part_labels")},
+            "direction": seen["direction"].cpu()}
 
 
 def make_copy(variant):
@@ -117,7 +131,10 @@ def card(refs):
     ref = torch.load(refs)
     report, ok = chip_smoke.bf16_step_accuracy(serve(EtchConfig(**STEP), "cuda"),
                                                ref["cpu"], ref["f32"])
-    result["step"] = {"ok": ok, "part_labels_off_f32": report["part_labels_off_f32"], **{
+    angles = report["direction"]
+    result["step"] = {"ok": ok, "part_labels_off_f32": report["part_labels_off_f32"],
+                      "direction": {"ratio_median_angle": angles["card_median_angle"]
+                                    / angles["cpu_median_angle"], **angles}, **{
         key: {"ratio_median": report[key]["card_median_rel"] / report[key]["cpu_median_rel"],
               "ratio_max": report[key]["card_max_abs"] / report[key]["cpu_max_abs"]}
         for key in ("confidences", "vector_length")}}
@@ -188,7 +205,8 @@ def main():
             raise SystemExit(f"{variant}: exit {run.returncode}\n{run.stderr[-4000:]}")
         results[variant] = json.loads(run.stdout.strip().splitlines()[-1])
         print(variant, json.dumps(results[variant]), flush=True)
-    print(json.dumps({"as_accurate": chip_smoke.AS_ACCURATE, **results}))
+    print(json.dumps({"as_accurate": chip_smoke.AS_ACCURATE,
+                      "as_accurate_step": chip_smoke.AS_ACCURATE_STEP, **results}))
     return 0 if all(r["ok"] for r in results["sound"].values()) else 1
 
 

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Device time of the PyTorch port's direction core, anchor attention, FPS
-and vector attention at their main-path shapes (B=8, N=5000), for comparing
-two checkouts on one CUDA card.  Run it from the root of each checkout:
+"""Device time of the PyTorch port's direction core, anchor attention, FPS,
+vector attention, kNN and occupancy projection at their main-path shapes
+(B=8, N=5000), for comparing two checkouts on one CUDA card.  Run it from
+the root of each checkout:
 
     PYTHONPATH=. python3 path/to/torch_kernels_ab.py [--rounds 10] [--reps 20]
-        [--kernels dircore,attention,fps,vector_attention]
+        [--kernels dircore,dircore_wide,attention,fps,vector_attention,knn,ones_proj]
 
 The shapes: the direction core on 40,000 points of 60 anchor tokens (E=64,
-8 heads, V=128); the attention on one 2048-point chunk; FPS at the five
+8 heads, V=128; `dircore_wide`: the same at E=128 and E=256, the wide
+core of the 128- and 256-channel EPN blocks); the attention on one 2048-point chunk; FPS at the five
 sampling shapes of a request (5000->2500 of the EPN, 5000->1250->312->78->19
 of the U-Net geometry); vector attention at the six (R, ns, c) shapes of the
-U-Nets' levels.  FPS and vector attention also report their time a request,
-each shape's time times its launches a request, summed.
+U-Nets' levels; kNN at the thirteen (k, queries, supports) shapes of a
+request; the occupancy conv with its projection at conv0's 512-center
+chunk and its ragged 452-center one.  FPS, vector attention, kNN and the
+occupancy projection also report their time a request, each shape's time
+times its launches a request, summed.
 
 It imports `etch_tpu_torch` from the current directory, so one copy of this
 script times any checkout; its timing helpers and clouds are those of the
@@ -33,6 +38,7 @@ import statistics
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # chip_smoke.py by its path: putting its directory on sys.path would shadow
@@ -48,6 +54,15 @@ FPS_SHAPES = ((N, 2500), (N, 1250), (1250, 312), (312, 78), (78, 19))   # one la
 # U-Net level, width, launches a request (two U-Nets: magnitude 64, 128, 256,
 # 256, 512 and confidence 128, 128, 256, 256, 512; blocks 2, 3, 4, 6, 3)
 VA_SHAPES = ((0, 64, 2), (0, 128, 2), (1, 128, 6), (2, 256, 8), (3, 256, 12), (4, 512, 6))
+# (k, queries, supports, launches a request): the U-Net levels' self and down
+# neighbours and up 3-NN, and the EPN features' propagation (5000 x 1250, k=3)
+LV = (N, 1250, 312, 78, 19)
+KNN_SHAPES = ((8, N, N, 1), (16, 1250, N, 1), (3, N, 1250, 2),
+              *((16, LV[l], LV[l], 1) for l in range(1, 5)),
+              *((16, LV[l], LV[l - 1], 1) for l in range(2, 5)),
+              *((3, LV[l], LV[l + 1], 1) for l in range(1, 4)))
+# conv0's chunks of its 2500 centers: four of 512, one of 452
+OCC_CHUNKS = ((512, 4), (452, 1))
 
 
 def main():
@@ -63,6 +78,7 @@ def main():
     from etch_tpu_torch.ops import fps as fps_op
     from etch_tpu_torch.ops.grouping import gather_points
     fps_mod = importlib.import_module("etch_tpu_torch.ops.fps")   # the module, not its re-export
+    knn_mod = importlib.import_module("etch_tpu_torch.ops.knn")
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
@@ -74,16 +90,19 @@ def main():
 
     wanted = args.kernels.split(",")
     kernels, per_request = {}, {}   # name -> fn; name -> (group, launches a request)
-    if "dircore" in wanted:
-        params = {f"{nm}{l}": randn(E, E, scale=E ** -0.5) for l in (0, 1)
+    for e in (E, 128, 256):
+        name = "dircore" if e == E else f"dircore E={e}"
+        if ("dircore" if e == E else "dircore_wide") not in wanted:
+            continue
+        params = {f"{nm}{l}": randn(e, e, scale=e ** -0.5) for l in (0, 1)
                   for nm in ("wq", "wk", "wv")}
-        params.update(wc0=randn(E, E, scale=E ** -0.5), bc0=randn(E, scale=0.1),
-                      wc1=randn(E, V, scale=E ** -0.5), bc1=randn(V, scale=0.1),
+        params.update(wc0=randn(e, e, scale=e ** -0.5), bc0=randn(e, scale=0.1),
+                      wc1=randn(e, V, scale=e ** -0.5), bc1=randn(V, scale=0.1),
                       wm0=randn(V, V, scale=V ** -0.5), bm0=randn(V, scale=0.1),
                       wm1=randn(V, V, scale=V ** -0.5), bm1=randn(V, scale=0.1),
                       wr=randn(V, 1, scale=V ** -0.5), br=randn(1, scale=0.1))
-        tokens = randn(M, A, E).to(torch.bfloat16)
-        kernels["dircore"] = lambda: dircore.direction_core_cuda(tokens, params, H)
+        tokens = randn(M, A, e).to(torch.bfloat16)
+        kernels[name] = (lambda t=tokens, p=params: dircore.direction_core_cuda(t, p, H))
     if "attention" in wanted:
         q, k, v = (randn(CHUNK, A, E, scale=(E // H) ** -0.5 if i == 0 else 1.0)
                    .to(torch.bfloat16) for i in range(3))
@@ -111,6 +130,33 @@ def main():
             name = f"vector_attention R={Bl * Nl} ns={ns} c={c}"
             kernels[name] = (lambda va=va: vector_attention.vector_attention_cuda(*va))
             per_request[name] = ("vector_attention", launches)
+    if "knn" in wanted or "ones_proj" in wanted:
+        clouds = {N: xyz}
+        for n, m in FPS_SHAPES:
+            clouds[m] = gather_points(clouds[n], fps_op(clouds[n], m)).contiguous()
+    if "knn" in wanted:
+        for kn, Q, S, launches in KNN_SHAPES:
+            name = f"knn k={kn} {Q}x{S}"
+            kernels[name] = (lambda q=clouds[Q], s=clouds[S], kn=kn: knn_mod.knn_cuda(q, s, kn))
+            per_request[name] = ("knn", launches)
+    if "ones_proj" in wanted:
+        from etch_tpu_torch.geometry.icosahedral import get_anchors
+        from etch_tpu_torch.geometry.kernel_points import get_kernel_points
+        from etch_tpu_torch.nn import interconv
+        from etch_tpu_torch.ops.ball_query import ball_query_cuda
+        from etch_tpu_torch.utils.config import EtchConfig, backbone_plan
+        spec = backbone_plan(EtchConfig(num_point=N, batch_size=B))[0][0]
+        kp = get_kernel_points(spec["radius"], spec["kernel_size"])
+        rk = torch.from_numpy(np.ascontiguousarray(
+            np.einsum("aij,kj->aki", get_anchors(60), kp).reshape(-1, 3))).to(dev)
+        nbr = ball_query_cuda(clouds[2500], xyz, spec["radius"], spec["n_neighbor"])
+        w = randn(kp.shape[0], spec["dim_out"], scale=0.3)
+        for c, launches in OCC_CHUNKS:
+            ctr, nb = clouds[2500][:, :c].contiguous(), nbr[:, :c].contiguous()
+            name = f"ones_proj c={c}"
+            kernels[name] = (lambda ctr=ctr, nb=nb: interconv.interconv_ones_proj_cuda(
+                xyz, ctr, nb, rk, spec["sigma"], 60, w))
+            per_request[name] = ("ones_proj", launches)
     times = {name: [] for name in kernels}
     graph = {name: [] for name in kernels}
     for _ in range(args.rounds):
