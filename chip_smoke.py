@@ -15,8 +15,9 @@ built at first use).  Phases, each of which raises on failure:
      chunks and their ragged last chunk, the occupancy convs likewise, the
      anchor attention at full and ragged 2048-point chunks, vector attention
      at each U-Net level; and, launched by no timed request, the widths
-     repaired since: kNN at k = 48, the direction core at a head of 256 and
-     at E = 512, the attention at a head of 256, wider contraction rows):
+     repaired since: kNN at k = 48, the direction core at a head of 256, at
+     E = 512 and at E = 1024 with one head, the attention at heads of 256
+     and 512, the grouped head at c0 = 256, wider contraction rows):
      FPS, kNN and ball-query indices must be equal,
      the f32 inter-conv contraction (3xTF32 on the tensor cores; C >= 4 and
      C == 1 rows) and occupancy conv within
@@ -31,14 +32,17 @@ built at first use).  Phases, each of which raises on failure:
      for the f32 contraction's three passes, or 67 TFLOP/s of FP32, from
      the shapes: `bound`), and for the anchor attention the time of
      `scaled_dot_product_attention` on the same inputs (no other kernel has
-     one PyTorch call that computes its function);
+     one PyTorch call that computes its function); beside the grouped head,
+     the time of the bf16 product h @ W0 alone (`torch.matmul`, a yardstick
+     the port never calls);
   4. small-input reference: the serving step at tiny widths on the card
      (kernels) against the same weights on the CPU (plain versions), in five
      variants (SMALL_STEPS): f32; bf16 with two direction layers (the fused
      direction core); bf16 with the tiny config's one layer (the chunked core
      and the anchor-attention kernel); f32 and bf16 with an EPN schedule
      whose second conv reads 1-channel rows (the C == 1 contraction); then
-     the deeper EPN at full width (DEEP_STEPS).  Each must launch exactly its
+     the deeper EPN and a last EPN block of 1024 with one direction head at
+     full width (DEEP_STEPS).  Each must launch exactly its
      own kernel set; tolerances in `small_step`, the bf16 steps' directions
      included;
   5. main paths: `build_pipeline(EtchConfig(num_point=5000, batch_size=8,
@@ -160,7 +164,9 @@ WEIGHT_FLOP = 11
 # expanded form, max(x . (2 r / sigma) + 1 - |r|^2 / sigma, xx) - xx: 3 FFMA,
 # a max and the sum's add; and per neighbour its offset from the center
 # (3), xx = |x|^2 / sigma (an FMUL, 2 FFMA and the scale: 6) and the sum of
-# the xx (1); the (A, K) x (K, Co) projection on the tensor cores
+# the xx (1): the least work for the occupancy conv's weights, the bound of
+# both occupancy kernels (the projection's (A, K) x (K, Co) products on the
+# tensor cores)
 EXPANDED_WEIGHT_FLOP, NEIGHBOUR_FLOP = 8, 10
 
 
@@ -454,7 +460,7 @@ def compare_kernels(torch, dev):
               lambda: interconv.interconv_ones_cuda(xyz, ctr, nbr, rk, sg, 60),
               lambda: interconv.interconv_ones_torch(xyz, ctr, nbr, rk, sg, 60),
               bound(B * N * 12 + B * c * 12 + B * c * ns * 4 + 1440 * 12 + B * c * 1440 * 4,
-                    0.0, (WEIGHT_FLOP + 1.0) * B * c * ns * 1440))
+                    0.0, (EXPANDED_WEIGHT_FLOP * 1440 + NEIGHBOUR_FLOP) * B * c * ns))
 
     # contraction on f32 rows: conv1 (C=32, centers of 2500), conv2 (C=32,
     # the first 1250 of 2500: lazy sampling) and conv3 (C=64, 1250), each in
@@ -587,9 +593,11 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
 
     # direction core: every point's (60, E) tokens, V=128: E = 64 with 8 heads
     # (the main path), then the repaired E = 128 and 256 (epn_layer_num 3, 4),
-    # one head of 256 columns and a 512-wide last EPN block
+    # one head of 256 columns, a 512-wide last EPN block, and a 1024-wide one
+    # with one direction head (csrc/dircore_big.cu, on fewer points)
     V = 128
-    for E, H in ((64, 8), (128, 8), (256, 8), (256, 1), (512, 8)):
+    for E, H, M in ((64, 8, B * N), (128, 8, B * N), (256, 8, B * N), (256, 1, B * N),
+                    (512, 8, B * N), (1024, 1, 4096)):
         params = {}
         for l in (0, 1):
             for nm in ("wq", "wk", "wv"):
@@ -599,12 +607,12 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
                       wm0=randn(V, V, scale=V ** -0.5), bm0=randn(V, scale=0.1),
                       wm1=randn(V, V, scale=V ** -0.5), bm1=randn(V, scale=0.1),
                       wr=randn(V, 1, scale=V ** -0.5), br=randn(1, scale=0.1))
-        tokens = randn(B * N, 60, E).to(bf)
-        M, A = B * N, 60
+        tokens = randn(M, 60, E).to(bf)
+        A = 60
         flop = (2.0 * M * A * (2 * 3 * E * E + E * E + E * V + 2 * V * V + V)
                 + 4.0 * 2 * M * A * A * E)
         plain = (lambda t: torch.cat([dircore.direction_core_torch(t[s:s + 2048], params, H)
-                                      for s in range(0, B * N, 2048)]))
+                                      for s in range(0, t.shape[0], 2048)]))
         check("dircore", f"M={M} A={A} E={E} H={H} V={V}",
               lambda: dircore.direction_core_cuda(tokens, params, H), lambda: plain(tokens),
               bound(M * A * E * 2 + M * A * 4, flop),
@@ -629,9 +637,10 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
               library_fn=lambda: sdpa(qh, kh, vh, scale=1.0))
         del q, k, v, qh, kh, vh
     # repaired: the chunked core's attention at E = 256, 8 heads (two head
-    # groups) and one head of 256 columns (one point a block)
-    E2, Bc = 256, 2048
-    for H2 in (8, 1):
+    # groups), one head of 256 columns (one point a block) and one of 512
+    # (256-column slices)
+    Bc = 2048
+    for E2, H2 in ((256, 8), (256, 1), (512, 1)):
         hs2 = E2 // H2
         q, k, v = (randn(Bc, L, E2, scale=hs2 ** -0.5 if i == 0 else 1.0).to(bf)
                    for i in range(3))
@@ -664,17 +673,28 @@ def compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbr0, rk_of, c
               bound(R * c * 2 * 3 + R * nsl * (4 + c * 2) + R * c * 4,
                     2.0 * R * nsl * (c * cs + cs * cs), R * nsl * (8.0 * c + 6.0 * cs)))
 
-    # grouped confidence head: c0=128, k=86 parts
-    c0, k = 128, 86
-    gargs = (randn(B * N, c0).to(bf), randn(c0, k * c0, scale=c0 ** -0.5),
-             randn(k * c0, scale=0.1), randn(k, c0, scale=(6 / (k + c0)) ** 0.5),
-             randn(k, scale=0.1))
-    R = B * N
-    check("grouped_head", f"R={R} c0={c0} k={k}",
-          lambda: grouped_head.grouped_head_cuda(*gargs),
-          lambda: grouped_head.grouped_head_torch(*gargs),
-          bound(R * c0 * 2 + c0 * k * c0 * 2 + R * k * 4, 2.0 * R * c0 * k * c0,
-                4.0 * R * k * c0))
+    # grouped confidence head: c0=128, k=86 parts (the main path), then the
+    # repaired c0 = 256 (unet_planes_confidence[0] = 256); beside the first,
+    # the bf16 product h @ W0 alone, a yardstick the port never calls
+    R, k = B * N, 86
+    for c0 in (128, 256):
+        gargs = (randn(R, c0).to(bf), randn(c0, k * c0, scale=c0 ** -0.5),
+                 randn(k * c0, scale=0.1), randn(k, c0, scale=(6 / (k + c0)) ** 0.5),
+                 randn(k, scale=0.1))
+        check("grouped_head", f"R={R} c0={c0} k={k}",
+              lambda: grouped_head.grouped_head_cuda(*gargs),
+              lambda: grouped_head.grouped_head_torch(*gargs),
+              bound(R * c0 * 2 + c0 * k * c0 * 2 + R * k * 4, 2.0 * R * c0 * k * c0,
+                    4.0 * R * k * c0))
+        if c0 == 128:
+            h, w0 = gargs[0], gargs[1].to(bf)
+            mm_ms = cuda_ms(torch, lambda: torch.matmul(h, w0), 5)
+            print(f"  {'grouped_head':19s} yardstick h @ W0 (torch.matmul, bf16, ({R} x {c0}) x "
+                  f"({c0} x {k * c0})): {mm_ms:.3f} ms (graph "
+                  f"{graph_ms(torch, lambda: torch.matmul(h, w0), 5):.4f})")
+            del h, w0
+        del gargs
+        torch.cuda.empty_cache()
 
 
 SMALL_STEPS = (  # phase 4: (label, EtchConfig.tiny overrides, kernel set on the card)
@@ -684,13 +704,16 @@ SMALL_STEPS = (  # phase 4: (label, EtchConfig.tiny overrides, kernel set on the
     ("f32, 1-channel conv", dict(epn_mlps=C1_MLPS), "f32_c1"),
     ("bf16, 1-channel conv", dict(use_bfloat16=True, epn_mlps=C1_MLPS), "bf16_chunked_c1"),
 )
-DEEP_STEPS = (  # phase 4 at full width, EtchConfig(epn_layer_num=4) at N=1024, B=2: the
+DEEP_STEPS = (  # phase 4 at full width at N=1024, B=2: EtchConfig(epn_layer_num=4), the
     # 128- and 256-channel blocks (channel slices) and the E = 256 direction core,
-    # with 8 heads and with one head of 256 columns
+    # with 8 heads and with one head of 256 columns; a last EPN block of 1024
+    # channels with one direction head (the fused core of csrc/dircore_big.cu)
     ("f32, epn_layer_num=4", dict(epn_layer_num=4), "f32"),
     ("bf16, epn_layer_num=4", dict(epn_layer_num=4, use_bfloat16=True), "bf16"),
     ("bf16, epn_layer_num=4, one direction head",
      dict(epn_layer_num=4, use_bfloat16=True, dir_num_heads=1), "bf16"),
+    ("bf16, last EPN block of 1024, one direction head",
+     dict(epn_mlps=((32, 32), (1024, 1024)), use_bfloat16=True, dir_num_heads=1), "bf16"),
 )
 
 

@@ -240,20 +240,14 @@ __device__ __forceinline__ void etch_attention_tile8(QA qa, const bf16* ks, cons
   }
 }
 
-// One head of 16 * nk16 columns (nk16 <= KT): S = q_h k_h^T in nk16 k16
-// steps of m16n8k16, then o_h = a v_h 16 columns at a time.  qa(kt, a)
-// writes q's A fragment of the head's columns 16 kt .. 16 kt + 15;
-// emit(j, o0, o1) takes the f32 output fragments of its columns 16 j .. +7
-// and 16 j + 8 .. + 15.  ks, vs: the head's first column.
-template <int KT, typename QA, typename Emit>
-__device__ __forceinline__ void etch_attention_head16(QA qa, const bf16* ks, const bf16* vs,
-                                                      int ld, int L, int nk16, Emit emit) {
+// Logits of one head's 16 * nk16 columns (nk16 <= KT): s += q_h k_h^T in
+// nk16 k16 steps of m16n8k16 over the 64 keys.  qa(kt, a) writes q's A
+// fragment of the columns 16 kt .. 16 kt + 15; ks: the columns' first one.
+// A head wider than shared memory holds adds its column slices in turn.
+template <int KT, typename QA>
+__device__ __forceinline__ void etch_attention_logits16(QA qa, const bf16* ks, int ld, int nk16,
+                                                        float (&s)[8][4]) {
   const int lane = threadIdx.x & 31;
-  float s[8][4];
-#pragma unroll
-  for (int jt = 0; jt < 8; ++jt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[jt][e] = 0.f;
 #pragma unroll
   for (int kt = 0; kt < KT; ++kt) {
     if (kt < nk16) {
@@ -269,8 +263,16 @@ __device__ __forceinline__ void etch_attention_head16(QA qa, const bf16* ks, con
       }
     }
   }
-  uint32_t p[4][4];
-  etch_softmax_frags(s, L, p);
+}
+
+// o_h = a v_h over 16 * nk16 columns (nk16 <= KT), 16 at a time: a is the
+// softmax's A fragments (etch_softmax_frags); emit(j, o0, o1) takes the f32
+// output fragments of the columns 16 j .. + 7 and 16 j + 8 .. + 15; vs: the
+// columns' first one.
+template <int KT, typename Emit>
+__device__ __forceinline__ void etch_attention_pv16(const uint32_t (&p)[4][4], const bf16* vs,
+                                                    int ld, int nk16, Emit emit) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int j = 0; j < KT; ++j) {
     if (j < nk16) {
@@ -286,6 +288,29 @@ __device__ __forceinline__ void etch_attention_head16(QA qa, const bf16* ks, con
     }
   }
 }
+
+// One head of 16 * nk16 columns (nk16 <= KT): its logits, the softmax and
+// the product with v (above).
+template <int KT, typename QA, typename Emit>
+__device__ __forceinline__ void etch_attention_head16(QA qa, const bf16* ks, const bf16* vs,
+                                                      int ld, int L, int nk16, Emit emit) {
+  float s[8][4];
+#pragma unroll
+  for (int jt = 0; jt < 8; ++jt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[jt][e] = 0.f;
+  etch_attention_logits16<KT>(qa, ks, ld, nk16, s);
+  uint32_t p[4][4];
+  etch_softmax_frags(s, L, p);
+  etch_attention_pv16<KT>(p, vs, ld, nk16, emit);
+}
+
+// The anchor attention (csrc/attention.cu) on M points of L rows of q, k
+// and v with a row stride of ldr >= E elements, E = H heads of E / H
+// columns (q pre-scaled); out has the same rows, bf16 when out_bf16, else
+// f32.  Returns a cudaError_t.
+int etch_attention_rows(const void* q, const void* k, const void* v, void* out, int out_bf16,
+                        int M, int L, int E, int H, int ldr, cudaStream_t stream);
 
 // Raises a kernel's dynamic shared-memory limit above the 48 KB default.
 template <typename Kernel>

@@ -118,9 +118,10 @@
 // again; the instances and their speed at C <= 64 are those above.
 //
 // The fused occupancy projection (interconv_ones_proj_kernel, below) is
-// bound by the weight evaluation, as the plain occupancy kernel is
-// (nn*A*K = 92 K weights per center); it takes the expanded form of the
-// weights, and its projection runs on the tensor cores.
+// bound by the weight evaluation, as the f32 occupancy kernel
+// (interconv_ones_kernel) is (nn*A*K = 92 K weights per center); both take
+// the expanded form of the weights, several centers a block, and the
+// projection runs on the tensor cores.
 //
 // The C == 1 body keeps _kernel_c1's rounding: w is the exact f32 weight
 // (not rounded to bf16, unlike the C >= 8 body), the products and sums are
@@ -512,28 +513,6 @@ interconv_tf32_kernel(const float* __restrict__ xyz,      // (B, P, 3)
   }
 }
 
-// grid (c, B); one thread per (a, k) output column, looping over neighbours.
-__global__ void interconv_ones_kernel(const float* __restrict__ xyz,      // (B, P, 3)
-                                      const float* __restrict__ centers,  // (B, c, 3)
-                                      const int32_t* __restrict__ nbr,    // (B, c, nn)
-                                      const float* __restrict__ rk,       // (A*K, 3)
-                                      float* __restrict__ out,            // (B, c, A*K)
-                                      int P, int c, int nn, int AK, float sigma) {
-  extern __shared__ float gx[];  // nn * 3
-  const int p = blockIdx.x, b = blockIdx.y;
-  const size_t bp = static_cast<size_t>(b) * c + p;
-  load_offsets(xyz + static_cast<size_t>(b) * P * 3, centers + bp * 3, nbr + bp * nn, nn,
-               gx, nullptr);
-  __syncthreads();
-  float* ob = out + bp * AK;
-  for (int e = threadIdx.x; e < AK; e += blockDim.x) {
-    const float rv[3] = {rk[3 * e], rk[3 * e + 1], rk[3 * e + 2]};
-    float acc = 0.f;
-    for (int n = 0; n < nn; ++n) acc += kernel_weight(gx + 3 * n, rv, sigma);
-    ob[e] = acc;
-  }
-}
-
 // Occupancy conv with its (K -> Co) projection, expanded form.  Replaces
 // etch_tpu/nn/pallas_interconv.py:_kernel_ones_proj.  Bound on the H100: FP32
 // issue.  Each center sums nn * A * K weights (92 K at nn = 64, A * K = 1440;
@@ -702,6 +681,117 @@ __host__ __forceinline__ size_t occ_smem_bytes(int nn, int K, int Co) {
              sizeof(bf16);
 }
 
+// Occupancy conv on f32 (the f32 serving path: t = sum_n w, no projection).
+// Replaces etch_tpu/nn/pallas_interconv.py:_kernel_ones.  Bound on the H100:
+// FP32 issue, as the projection's kernel above (377 M weights a 512-center
+// chunk at B = 8).  Its design, without the projection:
+//   - The weight in the TPU kernel's expanded form (pallas_interconv.py:
+//     149-157) with the ReLU per weight,
+//       w = max((x . (2 r s) + (1 - |r|^2 s)) - xx, 0),   xx = |x|^2 s,
+//     3 FFMA, an FADD, an FMNMX and the sum's FADD.  Not the projection's
+//     sum_n max(u, xx) - sum_n xx: its two sums are several times t and
+//     cancel to some 3e-6 max|t| of a float64 direct form at conv0's radius
+//     and sigma (CPU emulation, tests/test_torch_hopper8.py), a third of the
+//     f32 gate (1e-5 max|t|); the ReLU per weight stays near 4e-7.
+//   - Several consecutive centers a block (as many as make one wave of
+//     resident blocks); a thread's kOccCols columns' constants in registers,
+//     paid once for all the block's centers; one broadcast LDS.128 of
+//     (x, y, z, xx) a neighbour feeds all of a thread's columns.
+//   - The (A K) f32 row is staged in shared memory and leaves as 16-byte
+//     streaming stores (t is read once, by the projection that follows).
+// grid (ceil(c / cpb), B); block occ_threads(A K); centers cpb blockIdx.x ..
+__global__ void __launch_bounds__(kOccMaxThreads)
+interconv_ones_kernel(const float* __restrict__ xyz,      // (B, P, 3)
+                      const float* __restrict__ centers,  // (B, c, 3)
+                      const int32_t* __restrict__ nbr,    // (B, c, nn)
+                      const float* __restrict__ rk,       // (A*K, 3)
+                      float* __restrict__ out,            // (B, c, A*K)
+                      int P, int c, int nn, int AK, float sigma, int cpb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* nb = reinterpret_cast<float4*>(smem_raw);   // (x, y, z, |x|^2 s)
+  float* st = reinterpret_cast<float*>(nb + nn);      // the staged (A K) row
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int b = blockIdx.y;
+  const float is = 1.f / sigma;
+  const float* xb = xyz + static_cast<size_t>(b) * P * 3;
+  // this thread's columns in round r (columns kOccCols nthr r ..): constants
+  // and index (-1: none); one round takes up to kOccCols * kOccMaxThreads
+  const int rounds = (AK + kOccCols * nthr - 1) / (kOccCols * nthr);
+  float ax[kOccCols], ay[kOccCols], az[kOccCols], cc[kOccCols];
+  int col[kOccCols];
+  const auto columns = [&](int r) {
+#pragma unroll
+    for (int i = 0; i < kOccCols; ++i) {
+      const int e = (r * kOccCols + i) * nthr + tid;
+      if (e < AK) {
+        const float rx = rk[3 * e], ry = rk[3 * e + 1], rz = rk[3 * e + 2];
+        ax[i] = 2.f * rx * is;
+        ay[i] = 2.f * ry * is;
+        az[i] = 2.f * rz * is;
+        cc[i] = 1.f - (rx * rx + ry * ry + rz * rz) * is;
+        col[i] = e;
+      } else {
+        ax[i] = ay[i] = az[i] = cc[i] = 0.f;
+        col[i] = -1;
+      }
+    }
+  };
+  columns(0);
+  const int p_end = min(c, (blockIdx.x + 1) * cpb);
+  for (int p = blockIdx.x * cpb; p < p_end; ++p) {
+    const size_t bp = static_cast<size_t>(b) * c + p;
+    const float* ctr = centers + bp * 3;
+    const int32_t* nbp = nbr + bp * nn;
+    __syncthreads();   // the previous center's offsets and staged row are spent
+    for (int n = tid; n < nn; n += nthr) {
+      const int j = nbp[n];
+      const float x = xb[3 * j] - ctr[0], y = xb[3 * j + 1] - ctr[1], z = xb[3 * j + 2] - ctr[2];
+      nb[n] = make_float4(x, y, z, (x * x + y * y + z * z) * is);
+    }
+    __syncthreads();
+    for (int r = 0; r < rounds; ++r) {
+      if (rounds > 1) columns(r);
+      float acc[kOccCols];
+#pragma unroll
+      for (int i = 0; i < kOccCols; ++i) acc[i] = 0.f;
+#pragma unroll 4
+      for (int n = 0; n < nn; ++n) {
+        const float4 v = nb[n];
+#pragma unroll
+        for (int i = 0; i < kOccCols; ++i)
+          acc[i] += fmaxf(fmaf(v.x, ax[i], fmaf(v.y, ay[i], fmaf(v.z, az[i], cc[i]))) - v.w, 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < kOccCols; ++i)
+        if (col[i] >= 0) st[col[i]] = acc[i];
+    }
+    __syncthreads();
+    float* ob = out + bp * AK;
+    if (AK % 4 == 0) {   // 16-byte streaming stores of the whole row
+      for (int e = tid; e < AK / 4; e += nthr)
+        __stcs(reinterpret_cast<float4*>(ob) + e, reinterpret_cast<const float4*>(st)[e]);
+    } else {
+      for (int e = tid; e < AK; e += nthr) ob[e] = st[e];
+    }
+  }
+}
+
+// Centers a block for a kernel over b * c centers: as many as give one wave
+// of resident blocks.  0 on success.
+template <typename Kernel>
+int occ_centers_a_block(Kernel kernel, int threads, size_t smem, int b, int c, int* cpb) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  const long long wave = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  *cpb = static_cast<int>((static_cast<long long>(b) * c + wave - 1) / wave);
+  return 0;
+}
+
 // grid (c, B); one thread per (a, k) output column.  T: feature and output
 // type (float, or bf16 rows with f32 sums and a bf16 t).
 template <typename T>
@@ -833,15 +923,20 @@ ETCH_API int etch_interconv_t_bf16(const float* xyz, const float* centers,
   });
 }
 
-// Occupancy (all-ones features): out (b, c, A*K).
+// Occupancy (all-ones features): out (b, c, A*K) f32.
 ETCH_API int etch_interconv_ones(const float* xyz, const float* centers, const int32_t* nbr,
                                  const float* rk, float* out, int b, int P, int c, int nn,
                                  int AK, float sigma, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(nn) * 3 * sizeof(float);
+  if (AK < 1 || nn < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(nn) * 16 + static_cast<size_t>(occ_round(AK, 4)) * 4;
+  const int threads = occ_threads(AK);
   cudaError_t err = etch_allow_smem(interconv_ones_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  interconv_ones_kernel<<<dim3(c, b), 256, smem, stream>>>(xyz, centers, nbr, rk, out, P, c,
-                                                           nn, AK, sigma);
+  if (b == 0 || c == 0) return 0;
+  int cpb = 1;
+  if (const int e = occ_centers_a_block(interconv_ones_kernel, threads, smem, b, c, &cpb)) return e;
+  interconv_ones_kernel<<<dim3((c + cpb - 1) / cpb, b), threads, smem, stream>>>(
+      xyz, centers, nbr, rk, out, P, c, nn, AK, sigma, cpb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -858,15 +953,9 @@ ETCH_API int etch_interconv_ones_proj(const float* xyz, const float* centers,
   cudaError_t err = etch_allow_smem(interconv_ones_proj_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b == 0 || c == 0) return 0;
-  // centers a block: as many as give one wave of resident blocks
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, interconv_ones_proj_kernel,
-                                                           threads, smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  const long long wave = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  const int cpb = static_cast<int>((static_cast<long long>(b) * c + wave - 1) / wave);
+  int cpb = 1;
+  if (const int e = occ_centers_a_block(interconv_ones_proj_kernel, threads, smem, b, c, &cpb))
+    return e;
   interconv_ones_proj_kernel<<<dim3((c + cpb - 1) / cpb, b), threads, smem, stream>>>(
       xyz, centers, nbr, rk, static_cast<const bf16*>(w), static_cast<bf16*>(out), P, c, nn, A,
       K, Co, sigma, cpb);

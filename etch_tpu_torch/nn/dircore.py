@@ -44,6 +44,12 @@ _HEAD_SIZES = (1, 2, 4, 8, 16)
 # up to 256
 _WIDE = (128, 256, 512)
 _WIDE_MAX_HS = 256
+# csrc/dircore_big.cu takes every other width: products batched over a chunk
+# of points (128-column tiles: E, the head layout and V zero-padded to
+# multiples of 128), activations in a device-memory scratch of about this
+# many bytes
+_BIG_TILE = 128
+_BIG_SCRATCH = 1 << 30
 _ROW_PAD = 8   # the kernel's shared-memory rows hold 8 more bf16 than the matrix
 # packed weight matrices, in the kernel's order: name -> (rows, columns)
 _W_LAYOUT = {**{n: (_E, _E) for n in ("wq0", "wk0", "wv0", "wc0", "wq1", "wk1", "wv1")},
@@ -179,15 +185,72 @@ def pack_weights_wide(params, device, Ep: int, Vp: int):
     return w.contiguous(), f.contiguous()
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def pack_weights_big(params, device, Ep: int, Ehp: int, Vp: int):
+    """The weights of `csrc/dircore_big.cu`: w, the bf16 matrices wq0, wk0,
+    wv0 (Ep x Ehp), wc0 (Ehp x Ep), wq1, wk1, wv1, wc1 (Ehp x Vp) and wm0
+    (Vp x Vp), row-major and zero-padded, flattened (params already in the
+    head layout); f, the f32 vectors bc0 (Ep), bc1, bm0, u = bf16(wm1) wr
+    (Vp) and bm1 . wr (padded to 4), as for `pack_weights_wide`."""
+    p = {k: v.to(device=device, dtype=torch.float32) for k, v in params.items()}
+    mats = []
+    for l in (0, 1):
+        mats += [_pad(p[f"{n}{l}"], Ep, Ehp) for n in ("wq", "wk", "wv")]
+        mats.append(_pad(p["wc0"], Ehp, Ep) if l == 0 else _pad(p["wc1"], Ehp, Vp))
+    mats.append(_pad(p["wm0"], Vp, Vp))
+    w = torch.cat([m.reshape(-1) for m in mats]).to(BF16)
+    wr = p["wr"][:, 0]
+    u = rnd(p["wm1"]) @ wr
+    f = torch.cat([_pad(p["bc0"], Ep), _pad(p["bc1"], Vp), _pad(p["bm0"], Vp), _pad(u, Vp),
+                   _pad((p["bm1"] @ wr)[None], 4)])
+    return w.contiguous(), f.contiguous()
+
+
+def big_dims(E: int, V: int, num_heads: int, hp: int):
+    """(Ep, Eh, Ehp, Vp) of `csrc/dircore_big.cu`: tokens padded to Ep, the
+    head layout Eh = num_heads * hp padded to Ehp, V padded to Vp."""
+    Eh = num_heads * hp
+    return _round_up(E, _BIG_TILE), Eh, _round_up(Eh, _BIG_TILE), _round_up(V, _BIG_TILE)
+
+
+def big_chunk(M: int, A: int, Ep: int, Ehp: int, Vp: int) -> int:
+    """Points a chunk of `csrc/dircore_big.cu`: what `_BIG_SCRATCH` bytes of
+    scratch hold (bf16 x, q, k, v, o and h1, f32 partial sums), at least one."""
+    row = 2 * (Ep + 4 * Ehp + Vp) + 4 * (Vp // 32)
+    return max(1, min(M, _BIG_SCRATCH // (A * row)))
+
+
+def _direction_core_big(tokens, params, num_heads: int, hp: int, scale: float, device):
+    """`csrc/dircore_big.cu` on tokens (M, A, E); params in the head layout."""
+    M, A, E = tokens.shape
+    V = params["wm0"].shape[0]
+    Ep, Eh, Ehp, Vp = big_dims(E, V, num_heads, hp)
+    w, f = pack_weights_big(params, device, Ep, Ehp, Vp)
+    chunk = big_chunk(M, A, Ep, Ehp, Vp)
+    # zeros: the attention writes o only up to Eh, and wc's zero rows beyond
+    # must meet zeros (not whatever the memory held)
+    scratch = torch.zeros(chunk * A * (Ep + 4 * Ehp + Vp), dtype=BF16, device=device)
+    part = torch.empty((Vp // 32) * chunk * A, dtype=torch.float32, device=device)
+    out = torch.empty((M, A), dtype=torch.float32, device=device)
+    _build.launch("dircore", "etch_dircore_big", device, _build.ptr(tokens), _build.ptr(w),
+                  _build.ptr(f), _build.ptr(out), _build.ptr(scratch), _build.ptr(part), M, A,
+                  E, Ep, Eh, Ehp, Vp, num_heads, scale, chunk)
+    return out
+
+
 def direction_core_cuda(tokens, params, num_heads: int):
     """The kernel: tokens (M, A, E) bf16 on the card, two layers ->
     (M, A) f32 anchor weights (br added here, as the TPU kernel's caller
-    does).  Any head count that divides E: each head runs at
+    does).  Any width and any head count that divides E: each head runs at
     `padded_head_size` in the head layout of `head_layout`, whose width is
     num_heads times that.  Where E and that width are at most 64, V at most
     128 and the padded head at most 16, `csrc/dircore.cu` runs it (weights
-    in shared memory); otherwise `csrc/dircore_wide.cu`, for E, the head
-    layout and V up to 512 and heads up to 256 columns."""
+    in shared memory); for E, the head layout and V up to 512 and heads up
+    to 256 columns `csrc/dircore_wide.cu`; above that `csrc/dircore_big.cu`
+    (products batched over chunks of points, activations in a scratch)."""
     device = _build.check_cuda("dircore", (tokens, BF16))
     M, A, E = tokens.shape
     V = params["wm0"].shape[0]
@@ -208,9 +271,8 @@ def direction_core_cuda(tokens, params, num_heads: int):
         # zero-padded to 512 for V above 256
         Ep = next((w for w in _WIDE if max(E, Eh) <= w and Vp <= max(w, 256)), None)
         if Ep is None or not Vp or hp > _WIDE_MAX_HS:
-            raise ValueError(f"dircore: needs E, V and the head layout (heads of {hs} columns "
-                             f"run at {hp}) at most {_WIDE[-1]} wide, heads at most "
-                             f"{_WIDE_MAX_HS}; got E={E}, V={V}, {num_heads} heads")
+            return _direction_core_big(tokens, params, num_heads, hp, scale, device) + \
+                params["br"].to(device=device, dtype=torch.float32)
         w, f = pack_weights_wide(params, device, Ep, Vp)
         x = tokens if E == Ep else _pad(tokens, M, A, Ep).contiguous()
         out = torch.empty((M, A), dtype=torch.float32, device=device)

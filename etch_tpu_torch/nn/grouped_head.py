@@ -25,7 +25,7 @@ from etch_tpu_torch import _build
 from etch_tpu_torch.nn.bf16 import BF16, mm, rnd
 
 _ROWS = 8192
-_C0 = 128      # csrc/grouped_head.cu compiles the group width in
+_TILE = 128    # csrc/grouped_head.cu runs groups and depths in 128-column tiles
 
 
 def grouped_head_torch(h, w0, b0, wg, bg):
@@ -41,7 +41,10 @@ def grouped_head_torch(h, w0, b0, wg, bg):
 
 
 def grouped_head_cuda(h, w0, b0, wg, bg):
-    """The kernel: bf16 h on the card (same contract)."""
+    """The kernel: bf16 h on the card (same contract).  Any c0: the kernel
+    runs groups and depths in 128-column tiles, so c0 is zero-padded to a
+    multiple of 128 (exact: a padded column gives relu(0) * 0).  W0 goes to
+    the kernel transposed, (k*c0, c0) bf16, formed here on every call."""
     device = _build.check_cuda("grouped_head", (h, BF16), (w0, torch.float32),
                                (b0, torch.float32), (wg, torch.float32),
                                (bg, torch.float32))
@@ -51,22 +54,21 @@ def grouped_head_cuda(h, w0, b0, wg, bg):
             or bg.shape != (k,):
         raise ValueError(f"grouped_head: bad shapes h {tuple(h.shape)}, w0 "
                          f"{tuple(w0.shape)}, wg {tuple(wg.shape)}")
-    if c0 > _C0:
-        raise ValueError(f"grouped_head: the kernel takes c0 <= {_C0}, got {c0}")
-    if c0 < _C0:   # zero-pad each group to the compiled width: relu(0) * 0
-        p = _C0 - c0
+    cp = -(-c0 // _TILE) * _TILE
+    if cp != c0:   # zero-pad each group and the depth to the tile width
+        p = cp - c0
         h = F.pad(h, (0, p))
-        w0 = F.pad(w0.reshape(c0, k, c0), (0, p, 0, 0, 0, p)).reshape(_C0, k * _C0)
+        w0 = F.pad(w0.reshape(c0, k, c0), (0, p, 0, 0, 0, p)).reshape(cp, k * cp)
         b0 = F.pad(b0.reshape(k, c0), (0, p)).reshape(-1)
         wg = F.pad(wg, (0, p))
     hb = h.contiguous()
-    w0b = w0.to(BF16).contiguous()
+    w0t = w0.t().to(BF16).contiguous()
     wgb = wg.to(BF16).contiguous()
     b0 = b0.contiguous()
     out = torch.empty((R, k), dtype=torch.float32, device=device)
     _build.launch("grouped_head", "etch_grouped_head", device, _build.ptr(hb),
-                  _build.ptr(w0b), _build.ptr(b0), _build.ptr(wgb), _build.ptr(bg),
-                  _build.ptr(out), R, k)
+                  _build.ptr(w0t), _build.ptr(b0), _build.ptr(wgb), _build.ptr(bg),
+                  _build.ptr(out), R, k, cp)
     return out
 
 

@@ -749,3 +749,143 @@ def test_repaired_widths_serve_on_the_card(cuda, variant):
     cfg = EtchConfig(num_point=1024, batch_size=2, **overrides)
     chip_smoke.small_step(torch, _build, variant, cfg, route,
                           fused_core=route != "bf16_chunked", full_width=True)
+
+
+# --- the last width refusals repaired, and the Hopper grouped head and f32
+# occupancy conv ---
+
+def _grouped_args(dev, R, c0, k, seed):
+    g = np.random.RandomState(seed)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    return (f32(g.randn(R, c0)).to(torch.bfloat16), f32(g.randn(c0, c0 * k) / np.sqrt(c0)),
+            f32(0.1 * g.randn(c0 * k)), f32(g.randn(k, c0) / np.sqrt(c0)), f32(0.1 * g.randn(k)))
+
+
+@pytest.mark.parametrize("k", [1, 3, 86])
+@pytest.mark.parametrize("c0", [8, 64, 128, 256, 512])
+@pytest.mark.parametrize("R", [1, 127, 1000, 40000])
+def test_grouped_head_kernel_widths(cuda, R, c0, k):
+    """The wgmma / TMA kernel at ragged and full row counts, groups narrower
+    than its 128-column tile (zero-padded), at it, and wider (c0 = 256 and
+    512: 128-column depth slices and group n-tiles), one to 86 groups; one
+    launch a call.  R = 1 is 64 launches of one row each, checked together
+    (one row's k outputs are too few for the median criterion)."""
+    n = 64 if R == 1 else R
+    args = _grouped_args(cuda, n, c0, k, seed=R + c0 + k)
+    before = _build.launches["grouped_head"]
+    if R == 1:
+        out = torch.cat([grouped_head.grouped_head(args[0][r:r + 1], *args[1:])
+                         for r in range(n)])
+    else:
+        out = grouped_head.grouped_head(*args)
+    assert _build.launches["grouped_head"] == before + n // R
+    assert out.shape == (n, k) and out.dtype == torch.float32
+    _close_bf16(out, grouped_head.grouped_head_torch(*args))
+
+
+def _occupancy_inputs(dev, c, nn, seed=9):
+    """conv0 of a request: the first c of the 2500 FPS centers of a
+    5000-point capsule cloud, nn neighbours at conv0's radius and sigma."""
+    from etch_tpu_torch.utils.config import EtchConfig, backbone_plan
+    spec = backbone_plan(EtchConfig(num_point=5000, batch_size=2))[0][0]
+    xyz = _capsules(dev, 2, 5000, seed)
+    ctr = gather_points(xyz, fps.fps_cuda(xyz, 2500))[:, :c].contiguous()
+    nbr = ball_query.ball_query_cuda(ctr, xyz, spec["radius"], nn)
+    rk = torch.from_numpy(np.einsum("aij,kj->aki", get_anchors(),
+                                    get_kernel_points(spec["radius"], 1))
+                          .reshape(-1, 3).copy()).to(dev)
+    return xyz, ctr, nbr, rk, spec["sigma"]
+
+
+@pytest.mark.parametrize("nn", [1, 17, 64])
+@pytest.mark.parametrize("c", [512, 452, 133])
+def test_interconv_ones_kernel_request_chunks(cuda, c, nn):
+    """The f32 occupancy conv (expanded-form weights, several centers a
+    block) at conv0's full and ragged chunks and a chunk of no request, 1, 17
+    and 64 neighbours: within 1e-5 * max|t| of the plain version (f32 sums
+    in another order) and of the direct form summed in float64."""
+    xyz, ctr, nbr, rk, sigma = _occupancy_inputs(cuda, c, nn)
+    before = _build.launches["interconv_ones"]
+    out = interconv.interconv_ones(xyz, ctr, nbr, rk, sigma, 60)
+    assert _build.launches["interconv_ones"] == before + 1
+    ref = interconv.interconv_ones_torch(xyz, ctr, nbr, rk, sigma, 60)
+    exact = interconv.interconv_ones_torch(xyz.double(), ctr.double(), nbr, rk.double(),
+                                           sigma, 60)
+    assert out.shape == ref.shape == (2, c, 60, 24)
+    assert ref.abs().max() > 0
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert (out.double() - exact).abs().max() <= 1e-5 * exact.abs().max()
+
+
+@pytest.mark.parametrize("E,V,H", [(768, 128, 8), (768, 768, 8), (1024, 128, 1),
+                                   (1024, 1024, 8), (512, 128, 1), (1024, 128, 2),
+                                   (960, 128, 10), (640, 256, 1)])
+def test_dircore_kernel_widths_above_512(cuda, E, V, H):
+    """E and V of 768 and 1024, one head of 512 at E = 512, two heads of 512
+    at E = 1024, ten heads of 96 at E = 960 (no power of two), one head of
+    640: the batched route (csrc/dircore_big.cu, products over chunks of
+    points, the attention in 256-column slices), one launch, as accurate as
+    the plain twin against the unrounded f32 function."""
+    params = _dircore_params(cuda, E, V)
+    tok = torch.from_numpy(np.random.RandomState(E + V + H).randn(133, 60, E)
+                           .astype(np.float32)).to(cuda, torch.bfloat16)
+    before = _build.launches["dircore"]
+    out = dircore.direction_core(tok, params, H, chunk=64)
+    assert _build.launches["dircore"] == before + 1
+    assert out.shape == (133, 60) and torch.isfinite(out).all()
+    _check_dircore(out, tok, params, H)
+
+
+def test_dircore_big_chunks(cuda, monkeypatch):
+    """The batched route over several chunks of points (its scratch cut to
+    a few points' worth) gives what one chunk gives."""
+    params = _dircore_params(cuda, 768, 128)
+    tok = torch.from_numpy(np.random.RandomState(7).randn(70, 60, 768)
+                           .astype(np.float32)).to(cuda, torch.bfloat16)
+    whole = dircore.direction_core_cuda(tok, params, 8)
+    monkeypatch.setattr(dircore, "_BIG_SCRATCH",
+                        9 * 60 * (2 * (768 + 4 * 768 + 128) + 4 * (128 // 32)))
+    assert dircore.big_chunk(70, 60, 768, 768, 128) == 9
+    assert torch.equal(dircore.direction_core_cuda(tok, params, 8), whole)
+
+
+@pytest.mark.parametrize("E,H", [(384, 1), (512, 1), (1024, 2), (600, 1)])
+@pytest.mark.parametrize("M", [1, 133, 2048])
+def test_attention_kernel_heads_above_256(cuda, M, E, H):
+    """Heads of 384, 512 and 600 columns (600 padded to 608) and two heads of
+    512: 256-column slices of q, k and v, the logits added over them."""
+    n = 64 if M == 1 else M
+    q, k, v = _qkv(cuda, n, 60, E, H, seed=E + M)
+    before = _build.launches["attention"]
+    out = torch.cat([attention.attention_cuda(q[s:s + M], k[s:s + M], v[s:s + M], H)
+                     for s in range(0, n, M)])
+    assert _build.launches["attention"] == before + n // M
+    _close_bf16(out, attention.attention_torch(q, k, v, H))
+
+
+_REPAIRED_8 = {
+    "last block 1024, one head, bf16": (dict(epn_mlps=((32, 32), (1024, 1024)),
+                                             use_bfloat16=True, dir_num_heads=1), "bf16"),
+    "last block 1024, one head, bf16 chunked": (dict(epn_mlps=((32, 32), (1024, 1024)),
+                                                     use_bfloat16=True, dir_num_heads=1),
+                                                "bf16_chunked"),
+    "last block 768, bf16": (dict(epn_mlps=((32, 32), (768, 768)), use_bfloat16=True), "bf16"),
+    "confidence planes 256, bf16": (dict(unet_planes_confidence=(256, 256, 256, 256, 512),
+                                         use_bfloat16=True), "bf16"),
+}
+
+
+@pytest.mark.parametrize("variant", list(_REPAIRED_8))
+def test_widths_above_512_serve_on_the_card(cuda, variant):
+    """A last EPN block of 1024 with one direction head (the fused core's
+    batched route; the chunked core's attention with a 1024-column head), a
+    768-wide last block, and the confidence U-Net at 256 planes (the grouped
+    head at c0 = 256), at num_point=1024, B=2, random weights: as accurate
+    as the CPU's bf16 step against the f32 one (AS_ACCURATE_STEP,
+    directions included)."""
+    import chip_smoke
+    from etch_tpu_torch.utils.config import EtchConfig
+    overrides, route = _REPAIRED_8[variant]
+    cfg = EtchConfig(num_point=1024, batch_size=2, **overrides)
+    chip_smoke.small_step(torch, _build, variant, cfg, route,
+                          fused_core=route != "bf16_chunked", full_width=True)

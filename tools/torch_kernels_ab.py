@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Device time of the PyTorch port's direction core, anchor attention, FPS,
-vector attention, kNN and occupancy projection at their main-path shapes
-(B=8, N=5000), for comparing two checkouts on one CUDA card.  Run it from
-the root of each checkout:
+vector attention, kNN, occupancy convs and grouped head at their main-path
+shapes (B=8, N=5000), for comparing two checkouts on one CUDA card.  Run it
+from the root of each checkout:
 
     PYTHONPATH=. python3 path/to/torch_kernels_ab.py [--rounds 10] [--reps 20]
-        [--kernels dircore,dircore_wide,attention,fps,vector_attention,knn,ones_proj]
+        [--kernels dircore,dircore_wide,attention,fps,vector_attention,knn,ones_proj,
+                   interconv_ones,grouped_head]
 
 The shapes: the direction core on 40,000 points of 60 anchor tokens (E=64,
 8 heads, V=128; `dircore_wide`: the same at E=128 and E=256, the wide
@@ -13,10 +14,11 @@ core of the 128- and 256-channel EPN blocks); the attention on one 2048-point ch
 sampling shapes of a request (5000->2500 of the EPN, 5000->1250->312->78->19
 of the U-Net geometry); vector attention at the six (R, ns, c) shapes of the
 U-Nets' levels; kNN at the thirteen (k, queries, supports) shapes of a
-request; the occupancy conv with its projection at conv0's 512-center
-chunk and its ragged 452-center one.  FPS, vector attention, kNN and the
-occupancy projection also report their time a request, each shape's time
-times its launches a request, summed.
+request; the occupancy conv with its projection (`ones_proj`, bf16 path)
+and without (`interconv_ones`, f32 path) at conv0's 512-center chunk and
+its ragged 452-center one; the grouped confidence head at R=40,000, c0=128,
+k=86.  FPS, vector attention, kNN and the occupancy convs also report their
+time a request, each shape's time times its launches a request, summed.
 
 It imports `etch_tpu_torch` from the current directory, so one copy of this
 script times any checkout; its timing helpers and clouds are those of the
@@ -130,7 +132,7 @@ def main():
             name = f"vector_attention R={Bl * Nl} ns={ns} c={c}"
             kernels[name] = (lambda va=va: vector_attention.vector_attention_cuda(*va))
             per_request[name] = ("vector_attention", launches)
-    if "knn" in wanted or "ones_proj" in wanted:
+    if {"knn", "ones_proj", "interconv_ones"} & set(wanted):
         clouds = {N: xyz}
         for n, m in FPS_SHAPES:
             clouds[m] = gather_points(clouds[n], fps_op(clouds[n], m)).contiguous()
@@ -139,7 +141,7 @@ def main():
             name = f"knn k={kn} {Q}x{S}"
             kernels[name] = (lambda q=clouds[Q], s=clouds[S], kn=kn: knn_mod.knn_cuda(q, s, kn))
             per_request[name] = ("knn", launches)
-    if "ones_proj" in wanted:
+    if "ones_proj" in wanted or "interconv_ones" in wanted:
         from etch_tpu_torch.geometry.icosahedral import get_anchors
         from etch_tpu_torch.geometry.kernel_points import get_kernel_points
         from etch_tpu_torch.nn import interconv
@@ -153,10 +155,23 @@ def main():
         w = randn(kp.shape[0], spec["dim_out"], scale=0.3)
         for c, launches in OCC_CHUNKS:
             ctr, nb = clouds[2500][:, :c].contiguous(), nbr[:, :c].contiguous()
-            name = f"ones_proj c={c}"
-            kernels[name] = (lambda ctr=ctr, nb=nb: interconv.interconv_ones_proj_cuda(
-                xyz, ctr, nb, rk, spec["sigma"], 60, w))
-            per_request[name] = ("ones_proj", launches)
+            if "ones_proj" in wanted:
+                name = f"ones_proj c={c}"
+                kernels[name] = (lambda ctr=ctr, nb=nb: interconv.interconv_ones_proj_cuda(
+                    xyz, ctr, nb, rk, spec["sigma"], 60, w))
+                per_request[name] = ("ones_proj", launches)
+            if "interconv_ones" in wanted:
+                name = f"interconv_ones c={c}"
+                kernels[name] = (lambda ctr=ctr, nb=nb: interconv.interconv_ones_cuda(
+                    xyz, ctr, nb, rk, spec["sigma"], 60))
+                per_request[name] = ("interconv_ones", launches)
+    if "grouped_head" in wanted:
+        from etch_tpu_torch.nn import grouped_head
+        c0, kg = 128, 86
+        gh = (randn(M, c0).to(torch.bfloat16), randn(c0, kg * c0, scale=c0 ** -0.5),
+              randn(kg * c0, scale=0.1), randn(kg, c0, scale=(6 / (kg + c0)) ** 0.5),
+              randn(kg, scale=0.1))
+        kernels["grouped_head"] = lambda: grouped_head.grouped_head_cuda(*gh)
     times = {name: [] for name in kernels}
     graph = {name: [] for name in kernels}
     for _ in range(args.rounds):
