@@ -54,6 +54,8 @@ _SIGNATURES = {
     "etch_dircore_big": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "etch_vector_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _P),
+    "etch_vector_attention_wide": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _P),
     "etch_grouped_head": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "etch_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "etch_interconv_t_c1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),

@@ -36,35 +36,44 @@
 // reads at most 77 MB of distinct rows: 0.136 ms (0.248 ms) at 3.35 TB/s,
 // against 24 GFLOP (48) of products, 0.025 ms (0.05) on the tensor cores.
 // Per center and anchor the contraction is a small GEMM, (K x nn)(nn x C),
-// run as bf16 mma.sync m16n8k16 with f32 accumulators: M = K (24, padded to
-// two m16 tiles, 32), N = C (C/8 n8 tiles), depth nn (padded to 16; padded
-// neighbours have w = 0 and finite feature rows).  This orientation pads K,
-// which costs only products the byte bound leaves free, and in exchange
-// hands back each accumulator fragment in t's own (k, c) row-major order and
-// takes C = 8 as one n8 tile; M = C, N = K would pad nothing at C >= 16 but
-// return t transposed and pad C = 8 to 16.  A block of 4 warps owns one
-// center; each warp owns anchors warp, warp + 4, ... and runs its own
-// pipeline with no block barrier: it gathers anchor a+4's (nn, C) feature
-// tile with 16-byte cp.async into the second of two tiles (each neighbour's
-// C values are contiguous in the (B, P, A*C) row) while anchor a computes.
-// The w tile never exists: each lane evaluates on the FP32 cores exactly the
-// weights of its own A fragments (kernel points g + 8m, neighbours 16kt + t2
-// + {0, 1, 8, 9}; the m16n8k16 A layout covers each (k, n) once) and packs
-// them to bf16 in registers, as kernel_weight and etch_round_bf16 do; the
-// quotient by sigma is formed by Markstein's correction from RN(1 / sigma),
-// which gives the correctly rounded f32 quotient in three instructions
-// instead of a division's ten.  At some twelve FP32 instructions a weight
-// (377 M weights a C = 32 chunk) this evaluation, not the bytes, is what
-// the kernel's time follows.  The feature B fragments come by
-// ldmatrix.trans from rows padded by 8 elements (16 bytes), which keeps
-// every ldmatrix phase free of bank conflicts.  The epilogue rounds to
-// bf16, stages the (K, C) block in the warp's spent feature tile and writes
-// it with 16-byte streaming stores (t exceeds L2 and is read once, by the
-// projection).  Shared memory per block: 20 nn_pad bytes of offsets and
-// indices plus, per warp, two feature tiles of max(nn_pad, K) x (C + 8)
-// bf16: at nn = 64, 42.2 KB for C = 32 (5 blocks, 20 warps an SM) and
-// 75 KB for C = 64 (3 blocks, 12 warps).  Left for later: fusing the
-// (K*C -> Co) projection so that t never reaches device memory.
+// run as bf16 mma.sync m16n8k16 with f32 accumulators: M = K (a block of at
+// most 32 kernel points, padded to two m16 tiles), N = C (C/8 n8 tiles),
+// depth nn (padded to 16; padded neighbours have w = 0 and finite feature
+// rows).  This orientation pads K, which costs only products the byte bound
+// leaves free, and in exchange hands back each accumulator fragment in t's
+// own (k, c) row-major order and takes C = 8 as one n8 tile; M = C, N = K
+// would pad nothing at C >= 16 but return t transposed and pad C = 8 to 16.
+// A block of 4 warps owns one center (and one channel slice); each warp owns
+// anchors warp, warp + 4, ... and runs its own pipeline with no block
+// barrier: it gathers its neighbours' (nn, C) feature rows with 16-byte
+// cp.async (each neighbour's C values are contiguous in the (B, P, A*C)
+// row) into one of two tiles, the next anchor's rows arriving while this
+// one computes.  Above 64 neighbours or 32 kernel points
+// (interconv_mma_ring_kernel, the same products): K runs as blocks of 32
+// kernel points on the grid's third axis, beside the channel slices (66
+// kernel points at kernel_size 3), each block gathering the rows again and
+// writing its rows of t, and the rows pass through the two tiles a chunk of
+// 64 neighbours at a time (262 at sampling_ratio 3.2), so shared memory
+// does not grow with nn; at nn <= 64 and K <= 32 the one-tile kernel keeps
+// its shorter loop, about 1% faster.  The w tile never exists: each lane
+// evaluates on the FP32 cores exactly the weights of its own A fragments
+// (kernel points g + 8m, neighbours 16kt + t2 + {0, 1, 8, 9}; the m16n8k16
+// A layout covers each (k, n) once) and packs them to bf16 in registers, as
+// etch_round_bf16 does; the quotient by sigma is formed by Markstein's
+// correction from RN(1 / sigma), which gives the correctly rounded f32
+// quotient in three instructions instead of a division's ten.  At some
+// twelve FP32 instructions a weight (377 M weights a C = 32 chunk) this
+// evaluation, not the bytes, is what the kernel's time follows.  The feature
+// B fragments come by ldmatrix.trans from rows padded by 8 elements (16
+// bytes), which keeps every ldmatrix phase free of bank conflicts.  The
+// epilogue rounds to bf16, stages the (K, C) block in the warp's spent tile
+// and writes it with 16-byte streaming stores (t exceeds L2 and is read
+// once, by the projection).  Shared memory per block: 20 nn_pad bytes of
+// offsets and indices plus, per warp, two tiles of max(min(nn_pad, 64),
+// min(K, 32)) x (C + 8) bf16: at nn = 64, 42.2 KB for C = 32 (5 blocks, 20
+// warps an SM) and 75 KB for C = 64 (3 blocks, 12 warps); at nn = 262 and C
+// = 64, 79 KB.  Left for later: fusing the (K*C -> Co) projection so that t
+// never reaches device memory.
 //
 // f32 rows (interconv_tf32_kernel).  Bound on the H100: the bytes again.  A
 // 512-center chunk at B=8 writes 755 MB of f32 t at C=32 (1.51 GB at C=64)
@@ -115,66 +124,47 @@
 // overlaps the one before it, whose channels it computes again and writes
 // with the same values; segments start on 16-byte boundaries, as Cw % 8 == 0
 // (bf16) and Cw % 4 == 0 (f32) put them.  Each slice evaluates the weights
-// again; the instances and their speed at C <= 64 are those above.
+// again; the instances and their speed at C <= 64 are those above.  Rows of
+// other widths reach the bodies padded by the wrapper with zero channels
+// (nn/interconv.py:interconv_t_cuda).
 //
-// The fused occupancy projection (interconv_ones_proj_kernel, below) is
-// bound by the weight evaluation, as the f32 occupancy kernel
-// (interconv_ones_kernel) is (nn*A*K = 92 K weights per center); both take
-// the expanded form of the weights, several centers a block, and the
-// projection runs on the tensor cores.
-//
-// The C == 1 body keeps _kernel_c1's rounding: w is the exact f32 weight
-// (not rounded to bf16, unlike the C >= 8 body), the products and sums are
-// f32, and t is rounded to bf16 only on bf16 rows.  The TPU kernel expands
-// the (nn, A) rows to (nn, A*K) lanes with a one-hot matmul; here one thread
-// owns an (a, k) column and reads its anchor's feature from the block's
-// gathered (nn, A) rows in shared memory.  Bound as the occupancy kernel:
-// nn*A*K = 92 K weights per center, one shared-memory read each more.
+// The occupancy conv (interconv_w_kernel<float, false>) and the C == 1 body
+// (interconv_w_kernel<T, true>) are one template, bound by the weight
+// evaluation (nn*A*K = 92 K weights per center); the fused occupancy
+// projection (interconv_ones_proj_kernel) shares its design and runs the
+// projection on the tensor cores.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMmaWarps = 4;  // warps per block of the bf16 and f32 bodies
-constexpr int kKp = 32;       // kernel points padded to two m16 tiles
+constexpr int kKp = 32;       // kernel points a block of the bf16 body: two m16 tiles
+constexpr int kMmaChunk = 64; // neighbours per gathered tile of the bf16 body
 constexpr int kChunk = 32;    // neighbours per gathered tile of the f32 body
 constexpr int kKb = 24;       // kernel points per block of the f32 body: 3 n8 tiles
 constexpr float kFar = 1e3f;  // a coordinate no kernel point reaches: w = 0
 constexpr int kSlice = 64;    // channels a block of the bf16 and f32 bodies at most
 
-// First channel of slice blockIdx.z of C channels in a row of Cw: C z, but
-// the last slice ends at the row's end (Cw - C) when C does not divide Cw,
-// overlapping its neighbour, whose channels it writes again with equal values.
-__device__ __forceinline__ int slice_start(int C, int Cw) {
-  return min(C * static_cast<int>(blockIdx.z), Cw - C);
-}
-
-__device__ __forceinline__ void load_offsets(const float* __restrict__ xyz,
-                                             const float* __restrict__ ctr,
-                                             const int32_t* __restrict__ nbr, int nn,
-                                             float* gx, int* sidx) {
-  for (int n = threadIdx.x; n < nn; n += blockDim.x) {
-    const int j = nbr[n];
-    if (sidx != nullptr) sidx[n] = j;
-    gx[3 * n] = xyz[3 * j] - ctr[0];
-    gx[3 * n + 1] = xyz[3 * j + 1] - ctr[1];
-    gx[3 * n + 2] = xyz[3 * j + 2] - ctr[2];
-  }
-}
-
-__device__ __forceinline__ float kernel_weight(const float* g, const float* r, float sigma) {
-  const float dx = g[0] - r[0], dy = g[1] - r[1], dz = g[2] - r[2];
-  return fmaxf(1.f - (dx * dx + dy * dy + dz * dz) / sigma, 0.f);
+// First channel of slice z of C channels in a row of Cw: C z, but the last
+// slice ends at the row's end (Cw - C) when C does not divide Cw, overlapping
+// its neighbour, whose channels it writes again with equal values.
+__device__ __forceinline__ int slice_start(int C, int Cw, int z) {
+  return min(C * z, Cw - C);
 }
 
 // Shared memory of the bf16 body: neighbour offsets (float4) and indices,
-// then per warp two (rows, C + 8) bf16 feature tiles, rows = max(nn_pad, K)
-// (rows padded by 8 elements; a spent tile stages the (K, C) output).
+// then per warp a ring of two (rows, C + 8) bf16 feature tiles, rows =
+// max(min(nn_pad, kMmaChunk), min(K, kKp)) (rows padded by 8 elements; a
+// spent tile stages a kernel-point block's (kn, C) output).
 __host__ __device__ __forceinline__ int mma_nn_pad(int nn) { return (nn + 15) & ~15; }
-__host__ __device__ __forceinline__ int mma_tile_rows(int np, int K) { return np > K ? np : K; }
+__host__ __device__ __forceinline__ int mma_tile_rows(int np, int K) {
+  const int n = np < kMmaChunk ? np : kMmaChunk, k = K < kKp ? K : kKp;
+  return n > k ? n : k;
+}
 
-// w = relu(1 - |o - r|^2 / sigma) as kernel_weight computes it; the quotient
-// by Markstein's correction from rs = RN(1 / sigma), which returns the
-// correctly rounded d2 / sigma in three instructions.
+// w = relu(1 - |o - r|^2 / sigma), the quotient by Markstein's correction
+// from rs = RN(1 / sigma), which returns the correctly rounded d2 / sigma in
+// three instructions.
 __device__ __forceinline__ float mma_weight(float4 o, const float (&r)[3], float sigma,
                                             float rs) {
   const float dx = o.x - r[0], dy = o.y - r[1], dz = o.z - r[2];
@@ -183,8 +173,10 @@ __device__ __forceinline__ float mma_weight(float4 o, const float (&r)[3], float
   return __saturatef(1.f - fmaf(fmaf(-q1, sigma, d2), rs, q1));   // q >= 0: 1 - q <= 1
 }
 
-// grid (c, B, slices); block kMmaWarps * 32.  bf16 rows of Cw channels an
-// anchor; block z takes the C = 8 * NT channels from slice_start(z); K <= kKp.
+// grid (c, B, slices); block kMmaWarps * 32.  nn <= kMmaChunk and K <= kKp:
+// one tile holds every neighbour row, one block every kernel point.  bf16
+// rows of Cw channels an anchor; block z takes the C = 8 * NT channels from
+// slice_start(z).
 template <int NT>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 interconv_mma_kernel(const float* __restrict__ xyz,      // (B, P, 3)
@@ -229,7 +221,7 @@ interconv_mma_kernel(const float* __restrict__ xyz,      // (B, P, 3)
   __syncthreads();  // offsets and indices ready; from here each warp is on its own
 
   const size_t AC = static_cast<size_t>(A) * Cw;
-  const int cz = slice_start(C, Cw);
+  const int cz = slice_start(C, Cw, blockIdx.z);
   const bf16* fb = feats + static_cast<size_t>(b) * P * AC + cz;
   auto gather = [&](int a, bf16* dst) {
     for (int e = lane; e < nn * NT; e += 32) {
@@ -315,6 +307,159 @@ interconv_mma_kernel(const float* __restrict__ xyz,      // (B, P, 3)
   }
 }
 
+// grid (c, B, slices * nkb); block kMmaWarps * 32.  bf16 rows of Cw channels
+// an anchor; block z takes kernel-point block z % nkb (kernel points
+// kKp (z % nkb) .. + kKp - 1) and the C = 8 * NT channels from
+// slice_start(z / nkb).
+template <int NT>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+interconv_mma_ring_kernel(const float* __restrict__ xyz,      // (B, P, 3)
+                          const float* __restrict__ centers,  // (B, c, 3)
+                          const int32_t* __restrict__ nbr,    // (B, c, nn)
+                          const bf16* __restrict__ feats,     // (B, P, A*Cw)
+                          const float* __restrict__ rk,       // (A*K, 3)
+                          bf16* __restrict__ out,             // (B, c, A, K, Cw)
+                          int P, int c, int nn, int A, int K, int Cw, int nkb, float sigma) {
+  constexpr int C = 8 * NT;
+  constexpr int kLdF = C + 8;               // feature and staging row stride
+  const int np = mma_nn_pad(nn);
+  const int tile = mma_tile_rows(np, K) * kLdF;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* gx = reinterpret_cast<float4*>(smem_raw);    // np
+  int* sidx = reinterpret_cast<int*>(gx + np);         // np
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bf16* fbuf = reinterpret_cast<bf16*>(sidx + np) + static_cast<size_t>(warp) * 2 * tile;
+
+  const int p = blockIdx.x, b = blockIdx.y;
+  const int k0 = kKp * static_cast<int>(blockIdx.z % nkb);   // this block's kernel points
+  const int kn = min(kKp, K - k0);
+  const size_t bp = static_cast<size_t>(b) * c + p;
+  const float* xb = xyz + static_cast<size_t>(b) * P * 3;
+  const float* ctr = centers + bp * 3;
+  // padded neighbours sit at kFar, padded kernel points at -kFar: their
+  // weights come out exactly 0 with no test in the weight loop
+  for (int n = threadIdx.x; n < np; n += blockDim.x) {
+    if (n < nn) {
+      const int j = nbr[bp * nn + n];
+      sidx[n] = j;
+      gx[n] = make_float4(xb[3 * j] - ctr[0], xb[3 * j + 1] - ctr[1], xb[3 * j + 2] - ctr[2], 0.f);
+    } else {
+      gx[n] = make_float4(kFar, kFar, kFar, 0.f);
+    }
+  }
+  // the last chunk's rows past nn, to its 16-row pad, start at zero in both
+  // tiles (their w is 0, and 0 times a stale NaN would not be); every other
+  // row a product reads is gathered first or holds finite staged t
+  const int nl = nn - (nn - 1) / kMmaChunk * kMmaChunk;   // the last chunk's rows
+  const int pad = (mma_nn_pad(nl) - nl) * C;
+  for (int e = lane; e < 2 * pad; e += 32) {
+    const int r = e % pad;
+    fbuf[(e / pad) * tile + (nl + r / C) * kLdF + r % C] = __float2bfloat16(0.f);
+  }
+  __syncthreads();  // offsets and indices ready; from here each warp is on its own
+
+  const size_t AC = static_cast<size_t>(A) * Cw;
+  const int cz = slice_start(C, Cw, blockIdx.z / nkb);
+  const bf16* fb = feats + static_cast<size_t>(b) * P * AC + cz;
+  // rows n0 .. n0 + 63 (or to nn) of anchor a into tile dst
+  auto gather = [&](int a, int n0, bf16* dst) {
+    const int rows = min(kMmaChunk, nn - n0);
+    for (int e = lane; e < rows * NT; e += 32) {
+      const int n = e / NT, ch = e % NT;
+      etch_cp_async16(dst + n * kLdF + ch * 8,
+                      fb + static_cast<size_t>(sidx[n0 + n]) * AC + static_cast<size_t>(a) * Cw + ch * 8);
+    }
+  };
+  const int g = lane >> 2, t2 = 2 * (lane & 3);   // fragment row and column pair
+  const float rs = 1.f / sigma;
+
+  // a warp's steps: anchors warp, warp + 4, ...; per anchor the neighbour
+  // chunks n0 = 0, kMmaChunk, ... (one at nn <= 64)
+  int a = warp, n0 = 0;
+  if (a < A) gather(a, 0, fbuf);
+  etch_cp_async_commit();
+  float r[4][3];
+  float acc[2][NT][4];
+  for (int s = 0; a < A; ++s) {
+    int a1 = a, n1 = n0 + kMmaChunk;   // the next step
+    if (n1 >= nn) n1 = 0, a1 += kMmaWarps;
+    if (n0 == 0) {
+      // this lane's A-fragment rows are kernel points k0 + g + 8m, m = 0..3
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int k = g + 8 * m;
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          r[m][d] = k < kn ? __ldg(rk + (static_cast<size_t>(a) * K + k0 + k) * 3 + d) : -kFar;
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+    }
+    // the next chunk's features into the other tile, then wait for this one's
+    if (a1 < A) gather(a1, n1, fbuf + ((s + 1) & 1) * tile);
+    etch_cp_async_commit();
+    etch_cp_async_wait<1>();
+    __syncwarp();
+
+    bf16* fcur = fbuf + (s & 1) * tile;
+    const int ksteps = min(kMmaChunk, np - n0) / 16;
+    for (int kt = 0; kt < ksteps; ++kt) {
+      // w for rows g + 8m and neighbours n0 + 16 kt + t2 + {0, 1, 8, 9},
+      // formed in registers straight into the A fragments (bf16, as
+      // etch_round_bf16)
+      float w[4][4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int n = n0 + 16 * kt + t2 + (u & 1) + 8 * (u >> 1);
+        const float4 o = gx[n];
+#pragma unroll
+        for (int m = 0; m < 4; ++m)   // 8m < kn is the same for every lane: rows 24..31 at K = 24 cost nothing
+          w[m][u] = 8 * m < kn ? mma_weight(o, r[m], sigma, rs) : 0.f;
+      }
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          af[mt][h] = etch_pack_bf16(w[2 * mt + h][0], w[2 * mt + h][1]);
+          af[mt][2 + h] = etch_pack_bf16(w[2 * mt + h][2], w[2 * mt + h][3]);
+        }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bq[2];
+        etch_ldsm_x2_trans(bq, fcur + (kt * 16 + (lane & 15)) * kLdF + j * 8);
+        etch_mma_16816(acc[0][j], af[0], bq[0], bq[1]);
+        etch_mma_16816(acc[1][j], af[1], bq[0], bq[1]);
+      }
+    }
+    __syncwarp();  // every lane has read the tile: it may become the staging tile
+    if (n1 == 0) {   // the anchor's block is done: stage it in the spent tile
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = 16 * m + g + 8 * h;
+            if (k < kn)
+              *reinterpret_cast<uint32_t*>(fcur + k * kLdF + j * 8 + t2) =
+                  etch_pack_bf16(acc[m][j][2 * h], acc[m][j][2 * h + 1]);
+          }
+      __syncwarp();
+      bf16* ob = out + ((bp * A + a) * K + k0) * static_cast<size_t>(Cw) + cz;
+      for (int e = lane; e < kn * NT; e += 32)
+        __stcs(reinterpret_cast<int4*>(ob + (e / NT) * Cw + (e % NT) * 8),
+               *reinterpret_cast<const int4*>(fcur + (e / NT) * kLdF + (e % NT) * 8));
+      __syncwarp();  // staging read before the tile takes the gather after next
+    }
+    a = a1, n0 = n1;
+  }
+}
+
 // Row stride (f32 words) of the f32 body's tiles, 16 MT channels: 8 or 24
 // mod 32.
 __host__ __device__ constexpr int tf32_ld(int mt) { return 16 * mt + 8; }
@@ -388,7 +533,7 @@ interconv_tf32_kernel(const float* __restrict__ xyz,      // (B, P, 3)
   __syncthreads();  // offsets and indices ready; from here each warp is on its own
 
   const size_t AC = static_cast<size_t>(A) * Cw;
-  const int cz = slice_start(C, Cw);
+  const int cz = slice_start(C, Cw, blockIdx.z);
   const float* fb = feats + static_cast<size_t>(b) * P * AC + cz;
   // 16-byte pieces: a lane copies piece pq of rows pr, pr + kRowsPer, ...
   // (compile-time divisors; pieces past C / 4 are skipped)
@@ -516,9 +661,9 @@ interconv_tf32_kernel(const float* __restrict__ xyz,      // (B, P, 3)
 // Occupancy conv with its (K -> Co) projection, expanded form.  Replaces
 // etch_tpu/nn/pallas_interconv.py:_kernel_ones_proj.  Bound on the H100: FP32
 // issue.  Each center sums nn * A * K weights (92 K at nn = 64, A * K = 1440;
-// 377 M in a 512-center chunk at B = 8), and a weight evaluated as
-// kernel_weight does it (differences, squares, an IEEE division by sigma,
-// three scalar loads of the offset) costs some 20 instructions.  Design:
+// 377 M in a 512-center chunk at B = 8), and a weight evaluated in the
+// direct form (differences, squares, an IEEE division by sigma, three scalar
+// loads of the offset) costs some 20 instructions.  Design:
 //   - The weight in the expanded form of the TPU kernel
 //     (pallas_interconv.py:89-111,160-172):
 //       w = relu(x . (2 r s) + (1 - |r|^2 s) - |x|^2 s),  s = 1 / sigma,
@@ -681,97 +826,197 @@ __host__ __forceinline__ size_t occ_smem_bytes(int nn, int K, int Co) {
              sizeof(bf16);
 }
 
-// Occupancy conv on f32 (the f32 serving path: t = sum_n w, no projection).
-// Replaces etch_tpu/nn/pallas_interconv.py:_kernel_ones.  Bound on the H100:
-// FP32 issue, as the projection's kernel above (377 M weights a 512-center
-// chunk at B = 8).  Its design, without the projection:
-//   - The weight in the TPU kernel's expanded form (pallas_interconv.py:
-//     149-157) with the ReLU per weight,
+// Occupancy conv on f32 rows (interconv_w_kernel<float, false>: t = sum_n
+// w, no projection; replaces etch_tpu/nn/pallas_interconv.py:_kernel_ones)
+// and the C == 1 body (interconv_w_kernel<T, true>: t = sum_n w f[n, a] on
+// 1-channel rows; replaces _kernel_c1), one template.  Bound on the H100:
+// FP32 issue, 377 M weights a 512-center chunk at B = 8 (nn*A*K = 92 K a
+// center).  Design:
+//   - The weight in the TPU kernels' expanded form (pallas_interconv.py:
+//     149-157, 183-191) with the ReLU per weight,
 //       w = max((x . (2 r s) + (1 - |r|^2 s)) - xx, 0),   xx = |x|^2 s,
-//     3 FFMA, an FADD, an FMNMX and the sum's FADD.  Not the projection's
+//     s = 1 / sigma: 3 FFMA, an FADD and an FMNMX, then the sum's FADD
+//     (occupancy) or FFMA with the feature (C == 1).  Not the projection's
 //     sum_n max(u, xx) - sum_n xx: its two sums are several times t and
 //     cancel to some 3e-6 max|t| of a float64 direct form at conv0's radius
 //     and sigma (CPU emulation, tests/test_torch_hopper8.py), a third of the
-//     f32 gate (1e-5 max|t|); the ReLU per weight stays near 4e-7.
+//     f32 gate (1e-5 max|t|); the ReLU per weight stays near 4e-7, and near
+//     1e-7 of max|t| with signed 1-channel features at conv1's radius and
+//     sigma (tests/test_torch_hopper9.py).
 //   - Several consecutive centers a block (as many as make one wave of
-//     resident blocks); a thread's kOccCols columns' constants in registers,
-//     paid once for all the block's centers; one broadcast LDS.128 of
-//     (x, y, z, xx) a neighbour feeds all of a thread's columns.
-//   - The (A K) f32 row is staged in shared memory and leaves as 16-byte
-//     streaming stores (t is read once, by the projection that follows).
-// grid (ceil(c / cpb), B); block occ_threads(A K); centers cpb blockIdx.x ..
+//     resident blocks); a thread's kCols columns' constants in registers,
+//     paid once for all the block's centers.  The occupancy's columns are
+//     strided over the threads (1440 = 288 threads x 5); the C == 1 body's
+//     are 6 consecutive kernel points of one anchor (1440 = 240 threads x
+//     6), so one LDS of the neighbour's feature f[n, a] serves all six.
+//   - The neighbours stream through shared memory in chunks of kWChunk: per
+//     neighbour one broadcast LDS.128 of (x, y, z, xx), and for C == 1 its
+//     (A) feature row widened to f32; a column's chunk sums add into the
+//     staged row, so no nn is refused.
+//   - The (A K) row is staged in shared memory in f32 and leaves as 16-byte
+//     streaming stores (f32, or bf16 rounded from the f32 sums on bf16
+//     rows); t is read once, by the projection that follows.
+constexpr int kWChunk = 64;          // neighbours staged at a time
+constexpr int kC1Cols = 6;           // consecutive kernel points of one anchor a thread (C == 1)
+
+// Threads of a block of interconv_w_kernel<., kFeat>: columns a thread,
+// at most kOccMaxThreads (more columns take rounds).
+__host__ __forceinline__ int w_threads(bool feat, int A, int K) {
+  const int t = feat ? occ_round(A * ((K + kC1Cols - 1) / kC1Cols), 32)
+                     : occ_round((A * K + kOccCols - 1) / kOccCols, 32);
+  return t < kOccMaxThreads ? t : kOccMaxThreads;
+}
+
+__host__ __forceinline__ size_t w_smem_bytes(bool feat, int nn, int A, int K) {
+  const size_t cn = nn < kWChunk ? nn : kWChunk;
+  return cn * 16 + static_cast<size_t>(occ_round(A * K, 4)) * 4 + (feat ? cn * A * 4 : 0);
+}
+
+// A thread's kCols column sums over a chunk's count neighbours (kCount if it
+// is not 0): w in the expanded form with the ReLU per weight, summed
+// (occupancy) or times the neighbour's feature of the columns' anchor, fcol
+// (C == 1).
+template <int kCols, bool kFeat, int kCount>
+__device__ __forceinline__ void w_scan(float (&acc)[kCols], const float4* nb, const float* fcol,
+                                       int A, int count, const float (&ax)[kCols],
+                                       const float (&ay)[kCols], const float (&az)[kCols],
+                                       const float (&cc)[kCols]) {
+  const int cnt = kCount > 0 ? kCount : count;
+#pragma unroll 4
+  for (int n = 0; n < cnt; ++n) {
+    const float4 v = nb[n];
+    float f = 0.f;
+    if constexpr (kFeat) f = fcol[n * A];
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const float w = fmaxf(fmaf(v.x, ax[i], fmaf(v.y, ay[i], fmaf(v.z, az[i], cc[i]))) - v.w, 0.f);
+      if constexpr (kFeat)
+        acc[i] = fmaf(w, f, acc[i]);
+      else
+        acc[i] += w;
+    }
+  }
+}
+
+// grid (ceil(c / cpb), B); block w_threads(kFeat, A, K); centers cpb
+// blockIdx.x .. + cpb - 1.  feats (B, P, A) of T (kFeat), out (B, c, A*K) of T.
+template <typename T, bool kFeat>
 __global__ void __launch_bounds__(kOccMaxThreads)
-interconv_ones_kernel(const float* __restrict__ xyz,      // (B, P, 3)
-                      const float* __restrict__ centers,  // (B, c, 3)
-                      const int32_t* __restrict__ nbr,    // (B, c, nn)
-                      const float* __restrict__ rk,       // (A*K, 3)
-                      float* __restrict__ out,            // (B, c, A*K)
-                      int P, int c, int nn, int AK, float sigma, int cpb) {
+interconv_w_kernel(const float* __restrict__ xyz,      // (B, P, 3)
+                   const float* __restrict__ centers,  // (B, c, 3)
+                   const int32_t* __restrict__ nbr,    // (B, c, nn)
+                   const T* __restrict__ feats,        // (B, P, A) or null
+                   const float* __restrict__ rk,       // (A*K, 3)
+                   T* __restrict__ out,                // (B, c, A*K)
+                   int P, int c, int nn, int A, int K, float sigma, int cpb) {
+  constexpr int kCols = kFeat ? kC1Cols : kOccCols;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float4* nb = reinterpret_cast<float4*>(smem_raw);   // (x, y, z, |x|^2 s)
-  float* st = reinterpret_cast<float*>(nb + nn);      // the staged (A K) row
+  const int AK = A * K, cn_max = min(nn, kWChunk);
+  float4* nb = reinterpret_cast<float4*>(smem_raw);   // (x, y, z, |x|^2 s) of a chunk
+  float* st = reinterpret_cast<float*>(nb + cn_max);  // the staged (A K) row
+  float* fs = st + occ_round(AK, 4);                  // the chunk's (cn, A) rows (kFeat)
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int b = blockIdx.y;
   const float is = 1.f / sigma;
   const float* xb = xyz + static_cast<size_t>(b) * P * 3;
-  // this thread's columns in round r (columns kOccCols nthr r ..): constants
-  // and index (-1: none); one round takes up to kOccCols * kOccMaxThreads
-  const int rounds = (AK + kOccCols * nthr - 1) / (kOccCols * nthr);
-  float ax[kOccCols], ay[kOccCols], az[kOccCols], cc[kOccCols];
-  int col[kOccCols];
+  // this thread's columns in round r: constants, index (-1: none) and, for
+  // C == 1, their anchor; one round takes up to kCols * kOccMaxThreads
+  const int kg = (K + kCols - 1) / kCols;   // column groups an anchor (C == 1)
+  const int rounds = kFeat ? (A * kg + nthr - 1) / nthr : (AK + kCols * nthr - 1) / (kCols * nthr);
+  float ax[kCols], ay[kCols], az[kCols], cc[kCols];
+  int col[kCols], fa = 0;
   const auto columns = [&](int r) {
+    const int gi = r * nthr + tid;
+    if constexpr (kFeat) fa = gi < A * kg ? gi / kg : 0;
 #pragma unroll
-    for (int i = 0; i < kOccCols; ++i) {
-      const int e = (r * kOccCols + i) * nthr + tid;
-      if (e < AK) {
+    for (int i = 0; i < kCols; ++i) {
+      int e = -1;
+      if constexpr (kFeat) {
+        const int k = (gi % kg) * kCols + i;
+        if (gi < A * kg && k < K) e = fa * K + k;
+      } else {
+        e = (r * kCols + i) * nthr + tid;
+        if (e >= AK) e = -1;
+      }
+      if (e >= 0) {
         const float rx = rk[3 * e], ry = rk[3 * e + 1], rz = rk[3 * e + 2];
         ax[i] = 2.f * rx * is;
         ay[i] = 2.f * ry * is;
         az[i] = 2.f * rz * is;
         cc[i] = 1.f - (rx * rx + ry * ry + rz * rz) * is;
-        col[i] = e;
-      } else {
+      } else {   // no column: w = 0
         ax[i] = ay[i] = az[i] = cc[i] = 0.f;
-        col[i] = -1;
       }
+      col[i] = e;
     }
   };
   columns(0);
+  const T* fb = kFeat ? feats + static_cast<size_t>(b) * P * A : nullptr;
   const int p_end = min(c, (blockIdx.x + 1) * cpb);
   for (int p = blockIdx.x * cpb; p < p_end; ++p) {
     const size_t bp = static_cast<size_t>(b) * c + p;
     const float* ctr = centers + bp * 3;
     const int32_t* nbp = nbr + bp * nn;
-    __syncthreads();   // the previous center's offsets and staged row are spent
-    for (int n = tid; n < nn; n += nthr) {
-      const int j = nbp[n];
-      const float x = xb[3 * j] - ctr[0], y = xb[3 * j + 1] - ctr[1], z = xb[3 * j + 2] - ctr[2];
-      nb[n] = make_float4(x, y, z, (x * x + y * y + z * z) * is);
-    }
-    __syncthreads();
-    for (int r = 0; r < rounds; ++r) {
-      if (rounds > 1) columns(r);
-      float acc[kOccCols];
-#pragma unroll
-      for (int i = 0; i < kOccCols; ++i) acc[i] = 0.f;
-#pragma unroll 4
-      for (int n = 0; n < nn; ++n) {
-        const float4 v = nb[n];
-#pragma unroll
-        for (int i = 0; i < kOccCols; ++i)
-          acc[i] += fmaxf(fmaf(v.x, ax[i], fmaf(v.y, ay[i], fmaf(v.z, az[i], cc[i]))) - v.w, 0.f);
+    // neighbours in chunks of kWChunk; a ball of at most kWChunk is one
+    // chunk whose loop counts to the argument nn, which nvcc pipelines as it
+    // did in the occupancy conv before chunks (a count formed per chunk ran
+    // 8% slower on the card)
+    const bool one = nn <= kWChunk;
+    for (int n0 = 0; n0 < nn; n0 += kWChunk) {
+      const int cn = one ? nn : min(kWChunk, nn - n0);
+      __syncthreads();   // the previous chunk's rows, or center's staged row, are spent
+      for (int n = tid; n < cn; n += nthr) {
+        const int j = nbp[n0 + n];
+        const float x = xb[3 * j] - ctr[0], y = xb[3 * j + 1] - ctr[1], z = xb[3 * j + 2] - ctr[2];
+        nb[n] = make_float4(x, y, z, (x * x + y * y + z * z) * is);
       }
+      if constexpr (kFeat)   // a warp a neighbour's (A) row, lanes along it
+        for (int n = tid >> 5; n < cn; n += nthr >> 5) {
+          const T* fr = fb + static_cast<size_t>(nbp[n0 + n]) * A;
+          float* fd = fs + n * A;
+          if (sizeof(T) == 2 && A % 2 == 0) {   // bf16 pairs, 4-byte loads
+            for (int a = tid & 31; a < A / 2; a += 32) {
+              const float2 v = etch_unpack_bf16(reinterpret_cast<const uint32_t*>(fr)[a]);
+              fd[2 * a] = v.x;
+              fd[2 * a + 1] = v.y;
+            }
+          } else {
+            for (int a = tid & 31; a < A; a += 32) fd[a] = etch_f32(fr[a]);
+          }
+        }
+      __syncthreads();
+      for (int r = 0; r < rounds; ++r) {
+        if (rounds > 1) columns(r);
+        float acc[kCols];
 #pragma unroll
-      for (int i = 0; i < kOccCols; ++i)
-        if (col[i] >= 0) st[col[i]] = acc[i];
+        for (int i = 0; i < kCols; ++i) acc[i] = 0.f;
+        // a whole chunk of a longer ball counts to a compile-time constant
+        if (one)
+          w_scan<kCols, kFeat, 0>(acc, nb, fs + fa, A, nn, ax, ay, az, cc);
+        else if (cn == kWChunk)
+          w_scan<kCols, kFeat, kWChunk>(acc, nb, fs + fa, A, cn, ax, ay, az, cc);
+        else
+          w_scan<kCols, kFeat, 0>(acc, nb, fs + fa, A, cn, ax, ay, az, cc);
+#pragma unroll
+        for (int i = 0; i < kCols; ++i)
+          if (col[i] >= 0) st[col[i]] = n0 == 0 ? acc[i] : st[col[i]] + acc[i];
+      }
     }
     __syncthreads();
-    float* ob = out + bp * AK;
-    if (AK % 4 == 0) {   // 16-byte streaming stores of the whole row
+    T* ob = out + bp * AK;
+    if (sizeof(T) == 4 && AK % 4 == 0) {   // 16-byte streaming stores of the whole row
       for (int e = tid; e < AK / 4; e += nthr)
         __stcs(reinterpret_cast<float4*>(ob) + e, reinterpret_cast<const float4*>(st)[e]);
+    } else if (sizeof(T) == 2 && AK % 8 == 0) {   // 8 bf16 a 16-byte store
+      for (int e = tid; e < AK / 8; e += nthr) {
+        const float4 lo = reinterpret_cast<const float4*>(st)[2 * e];
+        const float4 hi = reinterpret_cast<const float4*>(st)[2 * e + 1];
+        __stcs(reinterpret_cast<uint4*>(ob) + e,
+               make_uint4(etch_pack_bf16(lo.x, lo.y), etch_pack_bf16(lo.z, lo.w),
+                          etch_pack_bf16(hi.x, hi.y), etch_pack_bf16(hi.z, hi.w)));
+      }
     } else {
-      for (int e = tid; e < AK; e += nthr) ob[e] = st[e];
+      for (int e = tid; e < AK; e += nthr) etch_store(ob + e, st[e]);
     }
   }
 }
@@ -792,51 +1037,22 @@ int occ_centers_a_block(Kernel kernel, int threads, size_t smem, int b, int c, i
   return 0;
 }
 
-// grid (c, B); one thread per (a, k) output column.  T: feature and output
-// type (float, or bf16 rows with f32 sums and a bf16 t).
-template <typename T>
-__global__ void interconv_c1_kernel(const float* __restrict__ xyz,      // (B, P, 3)
-                                    const float* __restrict__ centers,  // (B, c, 3)
-                                    const int32_t* __restrict__ nbr,    // (B, c, nn)
-                                    const T* __restrict__ feats,        // (B, P, A)
-                                    const float* __restrict__ rk,       // (A*K, 3)
-                                    T* __restrict__ out,                // (B, c, A*K)
-                                    int P, int c, int nn, int A, int K, float sigma) {
-  extern __shared__ float smem[];
-  float* gx = smem;                                    // nn * 3
-  float* fs = gx + nn * 3;                             // nn * A
-  int* sidx = reinterpret_cast<int*>(fs + nn * A);     // nn
-  const int p = blockIdx.x, b = blockIdx.y;
-  const size_t bp = static_cast<size_t>(b) * c + p;
-  load_offsets(xyz + static_cast<size_t>(b) * P * 3, centers + bp * 3, nbr + bp * nn, nn,
-               gx, sidx);
-  __syncthreads();
-  const T* fb = feats + static_cast<size_t>(b) * P * A;
-  for (int e = threadIdx.x; e < nn * A; e += blockDim.x) {
-    const int n = e / A, a = e % A;
-    fs[e] = etch_f32(fb[static_cast<size_t>(sidx[n]) * A + a]);
-  }
-  __syncthreads();
-  T* ob = out + bp * static_cast<size_t>(A) * K;
-  for (int e = threadIdx.x; e < A * K; e += blockDim.x) {
-    const float rv[3] = {rk[3 * e], rk[3 * e + 1], rk[3 * e + 2]};
-    const float* fa = fs + e / K;
-    float acc = 0.f;
-    for (int n = 0; n < nn; ++n) acc = fmaf(kernel_weight(gx + 3 * n, rv, sigma), fa[n * A], acc);
-    etch_store(ob + e, acc);
-  }
-}
-
-template <typename T>
-int launch_interconv_c1(const float* xyz, const float* centers, const int32_t* nbr,
-                        const void* feats, const float* rk, void* out, int b, int P, int c,
-                        int nn, int A, int K, float sigma, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(nn) * (3 + A + 1) * sizeof(float);
-  cudaError_t err = etch_allow_smem(interconv_c1_kernel<T>, smem);
+template <typename T, bool kFeat>
+int launch_interconv_w(const float* xyz, const float* centers, const int32_t* nbr,
+                       const void* feats, const float* rk, void* out, int b, int P, int c,
+                       int nn, int A, int K, float sigma, cudaStream_t stream) {
+  if (A < 1 || K < 1 || nn < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = w_smem_bytes(kFeat, nn, A, K);
+  const int threads = w_threads(kFeat, A, K);
+  cudaError_t err = etch_allow_smem(interconv_w_kernel<T, kFeat>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  interconv_c1_kernel<T><<<dim3(c, b), 256, smem, stream>>>(
-      xyz, centers, nbr, static_cast<const T*>(feats), rk, static_cast<T*>(out), P, c, nn, A,
-      K, sigma);
+  if (b == 0 || c == 0) return 0;
+  int cpb = 1;
+  if (const int e = occ_centers_a_block(interconv_w_kernel<T, kFeat>, threads, smem, b, c, &cpb))
+    return e;
+  interconv_w_kernel<T, kFeat><<<dim3((c + cpb - 1) / cpb, b), threads, smem, stream>>>(
+      xyz, centers, nbr, static_cast<const T*>(feats), rk, static_cast<T*>(out), P, c, nn, A, K,
+      sigma, cpb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -845,15 +1061,23 @@ int launch_interconv_mma(const float* xyz, const float* centers, const int32_t* 
                          const void* feats, const float* rk, void* out, int b, int P, int c,
                          int nn, int A, int K, int Cw, int slices, float sigma,
                          cudaStream_t stream) {
-  const int np = mma_nn_pad(nn);
+  const int np = mma_nn_pad(nn), nkb = (K + kKp - 1) / kKp;
   const size_t smem = static_cast<size_t>(np) * 20 +
                       static_cast<size_t>(kMmaWarps) * 2 * mma_tile_rows(np, K) *
                           (8 * NT + 8) * sizeof(bf16);
-  cudaError_t err = etch_allow_smem(interconv_mma_kernel<NT>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  interconv_mma_kernel<NT><<<dim3(c, b, slices), kMmaWarps * 32, smem, stream>>>(
-      xyz, centers, nbr, static_cast<const bf16*>(feats), rk, static_cast<bf16*>(out), P, c, nn,
-      A, K, Cw, sigma);
+  const auto* f = static_cast<const bf16*>(feats);
+  auto* o = static_cast<bf16*>(out);
+  if (nn <= kMmaChunk && nkb == 1) {   // one tile of rows, one block of kernel points
+    cudaError_t err = etch_allow_smem(interconv_mma_kernel<NT>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    interconv_mma_kernel<NT><<<dim3(c, b, slices), kMmaWarps * 32, smem, stream>>>(
+        xyz, centers, nbr, f, rk, o, P, c, nn, A, K, Cw, sigma);
+  } else {
+    cudaError_t err = etch_allow_smem(interconv_mma_ring_kernel<NT>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    interconv_mma_ring_kernel<NT><<<dim3(c, b, slices * nkb), kMmaWarps * 32, smem, stream>>>(
+        xyz, centers, nbr, f, rk, o, P, c, nn, A, K, Cw, nkb, sigma);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -903,12 +1127,13 @@ ETCH_API int etch_interconv_t(const float* xyz, const float* centers, const int3
 
 // The same contraction on bf16 feature rows, on the tensor cores: bf16 w
 // times bf16 features, f32 sums, bf16 t.  Requires C % 8 == 0 (C > 64 runs
-// in channel slices) and K <= 32.
+// in channel slices); any K (blocks of 32 kernel points) and any nn (chunks
+// of 64 neighbours).
 ETCH_API int etch_interconv_t_bf16(const float* xyz, const float* centers,
                                    const int32_t* nbr, const void* feats, const float* rk,
                                    void* out, int b, int P, int c, int nn, int A, int K, int C,
                                    float sigma, cudaStream_t stream) {
-  if (K > kKp || C % 8 != 0 || C < 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (K < 1 || C % 8 != 0 || C < 8) return static_cast<int>(cudaErrorInvalidValue);
   return launch_slices(C, [&](int Cs, int slices) {
     switch (Cs / 8) {
 #define ETCH_CASE(nt)                                                                       \
@@ -927,17 +1152,8 @@ ETCH_API int etch_interconv_t_bf16(const float* xyz, const float* centers,
 ETCH_API int etch_interconv_ones(const float* xyz, const float* centers, const int32_t* nbr,
                                  const float* rk, float* out, int b, int P, int c, int nn,
                                  int AK, float sigma, cudaStream_t stream) {
-  if (AK < 1 || nn < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(nn) * 16 + static_cast<size_t>(occ_round(AK, 4)) * 4;
-  const int threads = occ_threads(AK);
-  cudaError_t err = etch_allow_smem(interconv_ones_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (b == 0 || c == 0) return 0;
-  int cpb = 1;
-  if (const int e = occ_centers_a_block(interconv_ones_kernel, threads, smem, b, c, &cpb)) return e;
-  interconv_ones_kernel<<<dim3((c + cpb - 1) / cpb, b), threads, smem, stream>>>(
-      xyz, centers, nbr, rk, out, P, c, nn, AK, sigma, cpb);
-  return static_cast<int>(cudaGetLastError());
+  return launch_interconv_w<float, false>(xyz, centers, nbr, nullptr, rk, out, b, P, c, nn, 1,
+                                          AK, sigma, stream);
 }
 
 // Occupancy conv with the fused (K -> Co) projection: w (K, Co) bf16,
@@ -967,15 +1183,15 @@ ETCH_API int etch_interconv_t_c1(const float* xyz, const float* centers, const i
                                  const float* feats, const float* rk, float* out, int b, int P,
                                  int c, int nn, int A, int K, float sigma,
                                  cudaStream_t stream) {
-  return launch_interconv_c1<float>(xyz, centers, nbr, feats, rk, out, b, P, c, nn, A, K,
-                                    sigma, stream);
+  return launch_interconv_w<float, true>(xyz, centers, nbr, feats, rk, out, b, P, c, nn, A, K,
+                                         sigma, stream);
 }
 
-// The same on bf16 rows: exact f32 weights and sums, bf16 t.
+// The same on bf16 rows: f32 weights and sums, bf16 t.
 ETCH_API int etch_interconv_t_c1_bf16(const float* xyz, const float* centers,
                                       const int32_t* nbr, const void* feats, const float* rk,
                                       void* out, int b, int P, int c, int nn, int A, int K,
                                       float sigma, cudaStream_t stream) {
-  return launch_interconv_c1<bf16>(xyz, centers, nbr, feats, rk, out, b, P, c, nn, A, K,
-                                   sigma, stream);
+  return launch_interconv_w<bf16, true>(xyz, centers, nbr, feats, rk, out, b, P, c, nn, A, K,
+                                        sigma, stream);
 }

@@ -42,10 +42,43 @@
 //   - k above 32 runs in passes of up to 32: a pass takes the pairs strictly
 //     after the last (d2, index) the previous pass selected, and only those.
 //
-// Ball query scans supports in index order, keeps the first nsample hits with
-// d2 < r2 (strict), stops the block once every query in it is full, and does
-// the reference's repeat-fill in place: cycle the cnt hits into the remaining
-// slots; an empty ball gives index 0 (etch_tpu/ops/ball_query.py:21-35).
+// Ball query.  Replaces etch_tpu/ops/pallas_knn.py:ball_query_pallas: the
+// first nsample supports in index order with d2 < r2 (strict, direct
+// difference), repeat-filled cyclically; an empty ball gives index 0
+// (etch_tpu/ops/ball_query.py:21-35).  Bound on the H100: FP32 issue over
+// the pairs the index-order scan must visit (a query stops at its nsample-th
+// hit; one whose ball holds fewer scans all N), some 10 instructions a pair
+// (a 16-byte shared load, the three differences, squares and sums, the
+// compare).  A thread a query in 128-thread blocks left B = 8 at 2500
+// queries with 5 warps an SM, a dependent loop with a branch and a scattered
+// store a hit.  Design:
+//   - A group of G lanes (G a power of two up to 32, aligned in the warp)
+//     owns one query; the launch picks the largest G whose grid still fits
+//     the card in one wave of resident blocks (half a wave above G = 8), so
+//     B = 1 fills the card as B = 8 does.
+//   - The supports pass through shared memory in tiles of 1024 float4 (x,
+//     y, z, 0), one LDS.128 a pair; the tile's tail is padded with points at
+//     infinity (d2 = inf: never a hit), so the scan has no bound test.
+//     Measured on the card and not kept: tiles of 512 (more blocks an SM,
+//     more barriers) and two queries a group (one load for two pairs, more
+//     registers) were both slower.
+//   - A chunk is 32 steps of G consecutive supports, one a lane a step:
+//     each lane runs its 32 tests without a branch into a 32-bit mask (a
+//     16-byte shared load, 8 FP32 operations, a compare and a bit a pair;
+//     the group size is a template argument, so the loads take immediate
+//     offsets).  Then the group merges in index order only the steps that
+//     hold a hit: for each, __ballot_sync gives the group's hit mask, a
+//     hit's slot is cnt + popc(mask & lanes below), which keeps index order
+//     exactly, and cnt += popc(mask).  At some 60 hits a query in 5000
+//     supports that merge is a few per cent of the scan.  A group stops
+//     after the chunk in which cnt reaches nsample (slots from nsample on
+//     are dropped); the warp leaves the tile when all its groups have
+//     stopped, the block stops loading tiles when all its queries have.
+//   - The query's row is staged in shared memory, repeat-filled (or zeroed
+//     for an empty ball) there, and leaves with the block's other rows as
+//     one contiguous run of coalesced stores, 16 bytes where nsample % 4 ==
+//     0.  Rows too long for shared memory (more than some 13,000 samples at
+//     G = 32) are written in place in device memory instead.
 #include "common.cuh"
 
 namespace {
@@ -291,59 +324,129 @@ int launch_knn(const float* q, const float* s, int32_t* idx, float* d2, int b, i
 
 // ---------------------------------------------------------------- ball query
 
-constexpr int kTile = 1024;
+constexpr int kBqThreads = 128;
+constexpr int kBqTile = 1024;    // supports a tile: a whole number of chunks at any G
+constexpr size_t kBqRowBytes = 200 * 1024;     // staged rows' shared memory at most
 
-__device__ __forceinline__ void load_tile(const float* __restrict__ s, int t0, int cnt,
-                                          float* tx, float* ty, float* tz) {
-  for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
-    tx[j] = s[3 * (t0 + j)];
-    ty[j] = s[3 * (t0 + j) + 1];
-    tz[j] = s[3 * (t0 + j) + 2];
-  }
-}
-
-__global__ void ball_query_kernel(const float* __restrict__ q, const float* __restrict__ s,
-                                  int32_t* __restrict__ out, int m, int n, float r2,
-                                  int nsample) {
-  __shared__ float tx[kTile], ty[kTile], tz[kTile];
-  const int b = blockIdx.y;
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = qi < m;
+// grid (ceil(m G / kBqThreads), b); block kBqThreads; G = 1 << LG.  The
+// group's query is (blockIdx.x kBqThreads + threadIdx.x) >> LG.  staged:
+// rows in shared memory (else in place in out).
+template <int LG>
+__global__ void __launch_bounds__(kBqThreads)
+ball_query_kernel(const float* __restrict__ q, const float* __restrict__ s,
+                  int32_t* __restrict__ out, int m, int n, float r2, int nsample, int staged) {
+  constexpr int G = 1 << LG, kSteps = 32, kSpan = G * kSteps;   // supports a chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* tile = reinterpret_cast<float4*>(smem_raw);   // kBqTile
+  int* rows = reinterpret_cast<int*>(tile + kBqTile);   // (kBqThreads >> LG, nsample)
+  const int b = blockIdx.y, tid = threadIdx.x, lane = tid & 31;
+  const int lane_g = tid & (G - 1), ql = tid >> LG;
+  const int q0 = blockIdx.x * (kBqThreads >> LG);       // the block's first query
+  const int qn = q0 + ql;
+  const bool active = qn < m;
+  // the group's bits of a warp ballot, and this lane's lower ones
+  const unsigned gmask = (G == 32 ? 0xffffffffu : (1u << G) - 1u) << (lane & ~(G - 1));
+  const unsigned below = (1u << lane) - 1u;
   float qx = 0.f, qy = 0.f, qz = 0.f;
-  int32_t* o = out + (static_cast<size_t>(b) * m + (active ? qi : 0)) * nsample;
   if (active) {
-    const float* qp = q + (static_cast<size_t>(b) * m + qi) * 3;
+    const float* qp = q + (static_cast<size_t>(b) * m + qn) * 3;
     qx = qp[0];
     qy = qp[1];
     qz = qp[2];
   }
+  int* row = staged ? rows + static_cast<size_t>(ql) * nsample
+                    : out + (static_cast<size_t>(b) * m + (active ? qn : 0)) * nsample;
   const float* sp = s + static_cast<size_t>(b) * n * 3;
   int cnt = 0;
   bool done = !active;
-  for (int t0 = 0; t0 < n; t0 += kTile) {
+  for (int t0 = 0; t0 < n; t0 += kBqTile) {
     // block-uniform exit once every query of the block is full; also the
     // barrier that protects the previous tile before it is overwritten
     if (__syncthreads_and(done)) break;
-    const int tcnt = min(kTile, n - t0);
-    load_tile(sp, t0, tcnt, tx, ty, tz);
+    const int tcnt = min(kBqTile, n - t0);
+    const int span = (tcnt + kSpan - 1) / kSpan * kSpan;   // whole chunks, <= kBqTile
+    for (int j = tid; j < span; j += kBqThreads) {
+      float4 v = make_float4(INFINITY, INFINITY, INFINITY, 0.f);   // never a hit
+      if (j < tcnt) v = make_float4(sp[3 * (t0 + j)], sp[3 * (t0 + j) + 1], sp[3 * (t0 + j) + 2], 0.f);
+      tile[j] = v;
+    }
     __syncthreads();
-    if (done) continue;
-    for (int j = 0; j < tcnt; ++j) {
-      if (etch_sqdist(qx - tx[j], qy - ty[j], qz - tz[j]) < r2) {
-        o[cnt++] = t0 + j;
-        if (cnt == nsample) {
-          done = true;
-          break;
-        }
+    for (int c0 = 0; c0 < span; c0 += kSpan) {
+      if (__all_sync(0xffffffffu, done)) break;   // every group of the warp
+      const float4* tp = tile + c0 + lane_g;
+      unsigned mask = 0u;   // bit u: support c0 + u G + lane_g is a hit
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const float4 p = tp[u * G];
+        if (etch_sqdist(qx - p.x, qy - p.y, qz - p.z) < r2) mask |= 1u << u;
       }
+      if (done) mask = 0u;
+      unsigned any = mask;   // the steps with a hit in the group
+#pragma unroll
+      for (int off = 1; off < G; off <<= 1) any |= __shfl_xor_sync(0xffffffffu, any, off);
+      while (__any_sync(0xffffffffu, any != 0u)) {
+        const int u = __ffs(any) - 1;
+        const bool hit = any != 0u && ((mask >> u) & 1u);
+        const unsigned hits = __ballot_sync(0xffffffffu, hit) & gmask;
+        if (hit) {
+          const int slot = cnt + __popc(hits & below);
+          if (slot < nsample) row[slot] = t0 + c0 + u * G + lane_g;
+        }
+        cnt += __popc(hits);
+        any &= any - 1u;
+      }
+      done = done || cnt >= nsample;
     }
   }
-  if (!active) return;
-  if (cnt == 0) {
-    for (int j = 0; j < nsample; ++j) o[j] = 0;
+  // repeat-fill the group's row from its cnt hits (slots below cnt are final
+  // once the group's lanes have synchronised), or zero an empty ball
+  cnt = min(cnt, nsample);
+  __syncwarp();
+  if (active)
+    for (int j = cnt + lane_g; j < nsample; j += G) row[j] = cnt == 0 ? 0 : row[j % cnt];
+  if (!staged) return;
+  __syncthreads();
+  // the block's rows are one contiguous run of out
+  const int nq = min(kBqThreads >> LG, m - q0);
+  const size_t len = static_cast<size_t>(nq) * nsample;
+  int32_t* ob = out + (static_cast<size_t>(b) * m + q0) * nsample;
+  if (nsample % 4 == 0) {
+    for (size_t e = tid; e < len / 4; e += kBqThreads)
+      reinterpret_cast<int4*>(ob)[e] = reinterpret_cast<const int4*>(rows)[e];
   } else {
-    for (int j = cnt; j < nsample; ++j) o[j] = o[j % cnt];
+    for (size_t e = tid; e < len; e += kBqThreads) ob[e] = rows[e];
   }
+}
+
+// The largest group (lg) whose grid fits one wave of resident blocks; the
+// instance, its shared memory and whether the rows are staged.  0 on success.
+template <int LG>
+int launch_ball_query(const float* q, const float* s, int32_t* out, int b, int m, int n,
+                      float r2, int nsample, int sms, bool force, cudaStream_t stream) {
+  const size_t rows = static_cast<size_t>(kBqThreads >> LG) * nsample * sizeof(int);
+  const bool staged = rows <= kBqRowBytes;
+  const size_t bytes = kBqTile * sizeof(float4) + (staged ? rows : 0);
+  cudaError_t err;
+  if ((err = etch_allow_smem(ball_query_kernel<LG>, bytes)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (!force) {
+    int per_sm = 0;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ball_query_kernel<LG>,
+                                                             kBqThreads, bytes)) != cudaSuccess)
+      return static_cast<int>(err);
+    const long long resident =
+        static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1) * kBqThreads;
+    // groups above 8 lanes only where the grid fills at most half a wave:
+    // at B = 8 a group of 16 idles more lanes once its ball is full than it
+    // gains (1250 x 1250 at G = 16 0.0234 ms, at G = 8 0.0200, on the card)
+    if ((static_cast<long long>(b) * m << LG) > (LG > 3 ? resident / 2 : resident))
+      return -1;   // too wide: the next group size
+  }
+  const int per_block = kBqThreads >> LG;
+  const dim3 grid(static_cast<unsigned>((m + per_block - 1) / per_block), b);
+  ball_query_kernel<LG><<<grid, kBqThreads, bytes, stream>>>(q, s, out, m, n, r2, nsample,
+                                                             staged ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -360,10 +463,25 @@ ETCH_API int etch_knn(const float* q, const float* s, int32_t* idx, float* d2, i
   return launch_knn<32>(q, s, idx, d2, b, m, n, k, stream);   // passes of 32 above
 }
 
-// q (b, m, 3), s (b, n, 3) f32 -> out (b, m, nsample) i32.
+// q (b, m, 3), s (b, n, 3) f32 -> out (b, m, nsample) i32.  Requires
+// nsample >= 1.
 ETCH_API int etch_ball_query(const float* q, const float* s, int32_t* out, int b, int m,
                              int n, float r2, int nsample, cudaStream_t stream) {
-  const dim3 grid((m + 127) / 128, b);
-  ball_query_kernel<<<grid, 128, 0, stream>>>(q, s, out, m, n, r2, nsample);
-  return static_cast<int>(cudaGetLastError());
+  if (nsample < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0 || m == 0) return 0;
+  // the largest group whose grid fits one wave of resident blocks (half a
+  // wave above 8 lanes); rows that do not fit kBqRowBytes of shared memory at
+  // that group stay in place
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  int e;
+  if ((e = launch_ball_query<5>(q, s, out, b, m, n, r2, nsample, sms, false, stream)) >= 0) return e;
+  if ((e = launch_ball_query<4>(q, s, out, b, m, n, r2, nsample, sms, false, stream)) >= 0) return e;
+  if ((e = launch_ball_query<3>(q, s, out, b, m, n, r2, nsample, sms, false, stream)) >= 0) return e;
+  if ((e = launch_ball_query<2>(q, s, out, b, m, n, r2, nsample, sms, false, stream)) >= 0) return e;
+  if ((e = launch_ball_query<1>(q, s, out, b, m, n, r2, nsample, sms, false, stream)) >= 0) return e;
+  return launch_ball_query<0>(q, s, out, b, m, n, r2, nsample, sms, true, stream);
 }

@@ -55,6 +55,28 @@
 //     the partial z sums meet in shared memory (summed in one order by every
 //     warp), and each warp then weighs its own channels.  That puts 4x the
 //     warps on the small-R levels, which are latency-bound.
+//
+// Rows above 520 channels (cs = c / 8 above 64: a U-Net level of 1024
+// planes) run vector_attention_wide_kernel: the accumulators of a whole
+// (16, cs) tile no longer fit the registers, nor W0 shared memory (256 KB at
+// c = 1024).  It keeps the first design's fragments, rounding points and
+// softmax, and differs in this:
+//   - W0 and W1 are packed once by the wrapper into the same fragment order
+//     in device memory (nn/vector_attention.py:pack_fragments) and read
+//     from the L2 by each warp;
+//   - z = w W0 runs in column blocks of 64 (8 n8 tiles), forming the w
+//     fragments again for each block; each block's z, after the a1 affine,
+//     ReLU and bf16 rounding, goes to a (16, cs) bf16 tile of the warp's in
+//     shared memory, so every logit is the full sum over c before the
+//     softmax;
+//   - l = z W1 runs in column blocks of 64 too, its A fragments by ldmatrix
+//     from the z tile, and each block's softmax over the point's rows is
+//     taken where the first design takes it;
+//   - pe is read from device memory in both uses (not staged), so shared
+//     memory grows with cs and the rows a point, not with c.
+// Rows whose c is not a multiple of 8 reach both kernels padded by the
+// wrapper with zero channels (their w is relu(0 * 0 + 0) = 0 and their W0
+// rows are zero), and the padded outputs are dropped.
 #include "common.cuh"
 
 namespace {
@@ -475,6 +497,272 @@ int launch_va(const bf16* xq, const bf16* xk, const bf16* xv, const int32_t* idx
   return static_cast<int>(cudaGetLastError());
 }
 
+// The wide rows' per-warp shared memory: the unit's indices, the (16, cs)
+// z tile (bf16, k16 steps of cs, rows padded by 8) and the (rows, cs) s tile
+// (f32).
+__host__ __device__ inline int wide_ldz(int nta) { return 16 * ((nta + 1) / 2) + 8; }
+__host__ __device__ inline int wide_lds(int nta) { return (8 * nta + 31) / 32 * 32 + 8; }
+__host__ __device__ inline size_t wide_warp_bytes(const VaShape& sh, int nta) {
+  return static_cast<size_t>(sh.rows) * 4 + 16 * wide_ldz(nta) * 2 +
+         static_cast<size_t>(sh.rows) * wide_lds(nta) * 4;
+}
+
+// grid: persistent blocks; block of up to kWarps warps (as many as fit shared
+// memory), one unit a warp.  nta: n8 tiles
+// of cs; w0f (cpad / 16, nta, 32) and w1f (ceil(nta / 2), nta, 32) uint2:
+// W0's and W1's B fragments, bf16, zero-padded.
+__global__ void __launch_bounds__(kWarps * 32)
+vector_attention_wide_kernel(const bf16* __restrict__ xq, const bf16* __restrict__ xk,
+                             const bf16* __restrict__ xv, const int32_t* __restrict__ idx,
+                             const bf16* __restrict__ pe, const float* __restrict__ a0,
+                             const uint2* __restrict__ w0f, const float* __restrict__ a1,
+                             const uint2* __restrict__ w1f, const float* __restrict__ b1,
+                             float* __restrict__ out, VaShape sh, int nta) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  constexpr int kNb = 8;   // n8 tiles a column block
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int ldz = wide_ldz(nta), lds = wide_lds(nta), k1 = (nta + 1) / 2;
+  unsigned char* wb = smem_raw + warp * wide_warp_bytes(sh, nta);
+  int* sidx = reinterpret_cast<int*>(wb);                          // rows
+  bf16* zt = reinterpret_cast<bf16*>(sidx + sh.rows);              // 16 x ldz
+  float* st = reinterpret_cast<float*>(zt + 16 * ldz);             // rows x lds
+  // z's columns past 8 nta, to the last k16 step, are read and must be 0
+  for (int e = lane; e < 16 * ldz / 2; e += 32) reinterpret_cast<uint32_t*>(zt)[e] = 0u;
+  const int ppu = sh.rows / sh.rp;
+  const int units = (sh.R + ppu - 1) / ppu;
+  const int g = lane >> 2, t = lane & 3, t2 = 2 * t;
+  const int nq = sh.c / 8;
+  const auto col_val = [&](const float* v, int col) { return col < sh.cs ? __ldg(v + col) : 0.f; };
+
+  for (int u = blockIdx.x * warps + warp; u < units; u += gridDim.x * warps) {
+    const int p0 = u * ppu;
+    for (int rr = lane; rr < sh.rows; rr += 32) {
+      const int p = p0 + rr / sh.rp, j = rr % sh.rp;
+      sidx[rr] = j < sh.ns && p < sh.R ? (p / sh.N) * sh.N + idx[static_cast<size_t>(p) * sh.ns + j]
+                                       : -1;
+    }
+    __syncwarp();
+    for (int r16 = 0; r16 < sh.rows; r16 += 16) {
+      const int rw[2] = {r16 + g, r16 + g + 8};   // this lane's rows
+      const bf16* kr[2];
+      const bf16* qr[2];
+      const bf16* pr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = sidx[rw[h]], p = min(p0 + rw[h] / sh.rp, sh.R - 1);
+        const int j = min(rw[h] % sh.rp, sh.ns - 1);
+        kr[h] = xk + static_cast<size_t>(m < 0 ? 0 : m) * sh.c;
+        qr[h] = xq + static_cast<size_t>(p) * sh.c;
+        pr[h] = pe + (static_cast<size_t>(p) * sh.ns + j) * sh.c;
+      }
+      // z = bf16(relu((w W0) a1)) a block of 64 columns at a time, into zt
+      for (int jb = 0; jb < nta; jb += kNb) {
+        float acc[kNb][4];
+#pragma unroll
+        for (int j = 0; j < kNb; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        for (int c32 = 0; c32 < sh.c; c32 += 32) {
+          const int ch = c32 + 8 * t;   // this lane's 8 channels of the chunk
+          uint32_t a[2][4];
+          if (ch < sh.c) {
+            uint4 raw[2][3];   // k, q and pe of rows g and g + 8
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              raw[h][0] = ldg16(kr[h] + ch);
+              raw[h][1] = ldg16(qr[h] + ch);
+              raw[h][2] = ldg16(pr[h] + ch);
+            }
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {   // channels ch + 4s .. ch + 4s + 3
+              const float4 sc = __ldg(reinterpret_cast<const float4*>(a0 + ch + 4 * s));
+              const float4 bi = __ldg(reinterpret_cast<const float4*>(a0 + sh.c + ch + 4 * s));
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const uint32_t* kw = reinterpret_cast<const uint32_t*>(&raw[h][0]) + 2 * s;
+                const uint32_t* qw = reinterpret_cast<const uint32_t*>(&raw[h][1]) + 2 * s;
+                const uint32_t* pw = reinterpret_cast<const uint32_t*>(&raw[h][2]) + 2 * s;
+                const float2 k0 = etch_unpack_bf16(kw[0]), k1v = etch_unpack_bf16(kw[1]);
+                const float2 q0 = etch_unpack_bf16(qw[0]), q1 = etch_unpack_bf16(qw[1]);
+                const float2 pv0 = etch_unpack_bf16(pw[0]), pv1 = etch_unpack_bf16(pw[1]);
+                a[s][h] = etch_pack_bf16(fmaxf(((k0.x - q0.x) + pv0.x) * sc.x + bi.x, 0.f),
+                                         fmaxf(((k0.y - q0.y) + pv0.y) * sc.y + bi.y, 0.f));
+                a[s][2 + h] = etch_pack_bf16(fmaxf(((k1v.x - q1.x) + pv1.x) * sc.z + bi.z, 0.f),
+                                             fmaxf(((k1v.y - q1.y) + pv1.y) * sc.w + bi.w, 0.f));
+              }
+            }
+          } else {
+#pragma unroll
+            for (int s = 0; s < 2; ++s)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) a[s][e] = 0u;
+          }
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            const uint2* bs = w0f + (static_cast<size_t>(c32 / 16 + s) * nta + jb) * 32 + lane;
+#pragma unroll
+            for (int j = 0; j < kNb; ++j)
+              if (jb + j < nta) {
+                const uint2 bv = __ldg(bs + j * 32);
+                etch_mma_16816(acc[j], a[s], bv.x, bv.y);
+              }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kNb; ++j) {
+          const int col = 8 * (jb + j) + t2;
+          if (jb + j < nta) {
+            const float s0 = col_val(a1, col), s1 = col_val(a1, col + 1);
+            const float c0 = col_val(a1 + sh.cs, col), c1 = col_val(a1 + sh.cs, col + 1);
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              *reinterpret_cast<uint32_t*>(zt + (g + 8 * h) * ldz + col) =
+                  etch_pack_bf16(fmaxf(acc[j][2 * h] * s0 + c0, 0.f),
+                                 fmaxf(acc[j][2 * h + 1] * s1 + c1, 0.f));
+          }
+        }
+      }
+      __syncwarp();
+      const bool ok[2] = {sidx[rw[0]] >= 0, sidx[rw[1]] >= 0};
+      // l = z W1 + b1 a block of 64 columns at a time, then its softmax
+      for (int jl = 0; jl < nta; jl += kNb) {
+        float l[kNb][4];
+#pragma unroll
+        for (int j = 0; j < kNb; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) l[j][e] = 0.f;
+        for (int kk = 0; kk < k1; ++kk) {
+          uint32_t za[4];
+          etch_ldsm_x4(za, zt + (lane & 15) * ldz + 16 * kk + (lane >> 4) * 8);
+          const uint2* bs = w1f + (static_cast<size_t>(kk) * nta + jl) * 32 + lane;
+#pragma unroll
+          for (int j = 0; j < kNb; ++j)
+            if (jl + j < nta) {
+              const uint2 bv = __ldg(bs + j * 32);
+              etch_mma_16816(l[j], za, bv.x, bv.y);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < kNb; ++j) {
+          const int col = 8 * (jl + j) + t2;
+          const float bx = col_val(b1, col), by = col_val(b1, col + 1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) l[j][e] = ok[e >> 1] ? l[j][e] + ((e & 1) ? by : bx) : -INFINITY;
+        }
+        if (sh.rp <= 16) {
+          // softmax over the point's rows, as vector_attention_kernel
+          const int span = 4 * min(sh.rp, 8);
+#pragma unroll
+          for (int j = 0; j < kNb; ++j)
+#pragma unroll
+            for (int c2 = 0; c2 < 2; ++c2) {
+              float mlo = l[j][c2], mhi = l[j][2 + c2];
+              if (sh.rp == 16) mlo = mhi = fmaxf(mlo, mhi);
+              for (int off = 4; off < span; off <<= 1) {
+                mlo = fmaxf(mlo, __shfl_xor_sync(0xffffffffu, mlo, off));
+                mhi = fmaxf(mhi, __shfl_xor_sync(0xffffffffu, mhi, off));
+              }
+              mlo = mlo == -INFINITY ? 0.f : mlo * kLog2e;
+              mhi = mhi == -INFINITY ? 0.f : mhi * kLog2e;
+              const float elo = etch_ex2(fmaf(l[j][c2], kLog2e, -mlo));
+              const float ehi = etch_ex2(fmaf(l[j][2 + c2], kLog2e, -mhi));
+              float dlo = elo, dhi = ehi;
+              if (sh.rp == 16) dlo = dhi = dlo + dhi;
+              for (int off = 4; off < span; off <<= 1) {
+                dlo += __shfl_xor_sync(0xffffffffu, dlo, off);
+                dhi += __shfl_xor_sync(0xffffffffu, dhi, off);
+              }
+              l[j][c2] = elo * rcp(dlo);
+              l[j][2 + c2] = ehi * rcp(dhi);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < kNb; ++j)
+          if (jl + j < nta)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              *reinterpret_cast<float2*>(st + rw[h] * lds + 8 * (jl + j) + t2) =
+                  make_float2(l[j][2 * h], l[j][2 * h + 1]);
+      }
+      __syncwarp();   // z read before the next tile's z is written
+    }
+
+    if (sh.rp > 16) {   // one point over several tiles: the softmax per column in shared memory
+      for (int col = lane; col < 8 * nta; col += 32) {
+        float m = -INFINITY, den = 0.f;
+        for (int j = 0; j < sh.ns; ++j) m = fmaxf(m, st[j * lds + col]);
+        const float ml = m == -INFINITY ? 0.f : m * kLog2e;
+        for (int j = 0; j < sh.ns; ++j) {
+          const float e = etch_ex2(fmaf(st[j * lds + col], kLog2e, -ml));
+          st[j * lds + col] = e;
+          den += e;
+        }
+        const float inv = rcp(den);
+        for (int j = 0; j < sh.ns; ++j) st[j * lds + col] *= inv;
+      }
+      __syncwarp();
+    }
+
+    // out[p, ch] = sum_j (v_j + pe_j)[ch] s_j[ch % cs]: items (point, 8-channel
+    // chunk) over the lanes, as vector_attention_kernel
+    const int items = ppu * nq;
+    for (int base = 0; base < items; base += 32) {
+      const int it = base + lane;
+      const int p = it / nq, q = it % nq;
+      if (it < items && p0 + p < sh.R) {
+        const int ch = 8 * q;
+        float o[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) o[e] = 0.f;
+        for (int j = 0; j < sh.ns; ++j) {
+          const int rr = p * sh.rp + j;
+          float vf[8], pf[8], sf[8];
+          unpack8(ldg16(xv + static_cast<size_t>(sidx[rr]) * sh.c + ch), vf);
+          unpack8(ldg16(pe + (static_cast<size_t>(p0 + p) * sh.ns + j) * sh.c + ch), pf);
+          const float* sr = st + rr * lds;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) sf[e] = sr[(ch + e) % sh.cs];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) o[e] = fmaf(vf[e] + pf[e], sf[e], o[e]);
+        }
+        float4* op = reinterpret_cast<float4*>(out + static_cast<size_t>(p0 + p) * sh.c + ch);
+        op[0] = make_float4(o[0], o[1], o[2], o[3]);
+        op[1] = make_float4(o[4], o[5], o[6], o[7]);
+      }
+    }
+    __syncwarp();   // the unit's tiles are read before the next unit's
+  }
+}
+
+int launch_va_wide(const bf16* xq, const bf16* xk, const bf16* xv, const int32_t* idx,
+                   const bf16* pe, const float* a0, const uint2* w0f, const float* a1,
+                   const uint2* w1f, const float* b1, float* out, const VaShape& sh,
+                   cudaStream_t stream) {
+  const int nta = (sh.cs + 7) / 8;
+  const size_t per_warp = wide_warp_bytes(sh, nta);
+  constexpr size_t kMaxSmem = 227 * 1024;
+  if (per_warp > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int warps = static_cast<int>(kMaxSmem / per_warp < kWarps ? kMaxSmem / per_warp : kWarps);
+  const size_t smem = warps * per_warp;
+  cudaError_t err = etch_allow_smem(vector_attention_wide_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vector_attention_wide_kernel,
+                                                           warps * 32, smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (per_sm == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int ppu = sh.rows / sh.rp;
+  const long long need = ((sh.R + ppu - 1) / ppu + warps - 1) / warps;
+  const int blocks = static_cast<int>(need < static_cast<long long>(per_sm) * sms ? need : per_sm * sms);
+  if (blocks == 0) return 0;
+  vector_attention_wide_kernel<<<blocks, warps * 32, smem, stream>>>(
+      xq, xk, xv, idx, pe, a0, w0f, a1, w1f, b1, out, sh, nta);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // xq (R, c), xk / xv (B, N, c), pe (R, ns, c): bf16, 16-byte aligned;
@@ -515,4 +803,27 @@ ETCH_API int etch_vector_attention(const void* xq, const void* xk, const void* x
 #undef ETCH_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The same function at cs above 64 (vector_attention_wide_kernel): w0f and
+// w1f are W0's and W1's B fragments, bf16, packed by the wrapper
+// (nn/vector_attention.py:pack_fragments), 16-byte aligned; c a multiple of 8.
+ETCH_API int etch_vector_attention_wide(const void* xq, const void* xk, const void* xv,
+                                        const int32_t* idx, const void* pe, const float* a0,
+                                        const void* w0f, const float* a1, const void* w1f,
+                                        const float* b1, float* out, int R, int N, int ns,
+                                        int c, int cs, cudaStream_t stream) {
+  if (c % 8 != 0 || c < 8 || cs < 1 || ns < 1 || R < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  VaShape sh{};
+  sh.R = R, sh.N = N, sh.ns = ns, sh.c = c, sh.cs = cs;
+  sh.rp = 1;
+  while (sh.rp < ns && sh.rp < 16) sh.rp *= 2;
+  if (ns > 16) sh.rp = (ns + 15) / 16 * 16;
+  sh.rows = sh.rp > 16 ? sh.rp : 16;
+  sh.ks = 1, sh.cw = c;
+  return launch_va_wide(static_cast<const bf16*>(xq), static_cast<const bf16*>(xk),
+                        static_cast<const bf16*>(xv), idx, static_cast<const bf16*>(pe), a0,
+                        static_cast<const uint2*>(w0f), a1, static_cast<const uint2*>(w1f), b1,
+                        out, sh, stream);
 }

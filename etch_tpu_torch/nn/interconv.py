@@ -42,11 +42,13 @@ _SMEM_BYTES = 227 * 1024
 # ceil(C / 64) channel slices of 64 on one launch's third grid axis, the last
 # ending at the row's end (`csrc/interconv.cu:launch_slices`)
 _SLICE = 64
-# the bf16 body: 4 warps a block, kernel points padded to 32 rows (two m16
-# tiles), C a multiple of the n8 tile
-_MMA_WARPS, _MMA_KP, _MMA_C = 4, 32, 8
+# the bf16 body: 4 warps a block, kernel points in blocks of 32 (two m16
+# tiles), neighbours gathered in chunks of 64, C a multiple of the n8 tile
+_MMA_WARPS, _MMA_KP, _MMA_CHUNK, _MMA_C = 4, 32, 64, 8
 # the f32 body (3xTF32): C a multiple of 4, neighbours gathered in chunks of 32
 _TF32_C, _TF32_CHUNK = 4, 32
+# the occupancy conv and the C == 1 body: neighbours staged 64 at a time
+_W_CHUNK = 64
 
 
 def _weights(xyz, centers, nbr, rk, sigma):
@@ -91,20 +93,29 @@ def interconv_ones_proj_torch(xyz, centers, nbr, rk, sigma: float, A: int, w):
     return (rnd(t) @ rnd(w)).to(BF16)
 
 
+def padded_channels(C: int, bf16: bool) -> int:
+    """The channel count a body runs C at: C rounded up to the body's grain
+    (8 for bf16, 4 for f32); the wrapper pads each anchor's row with zero
+    channels up to it."""
+    grain = _MMA_C if bf16 else _TF32_C
+    return -(-C // grain) * grain
+
+
 def mma_smem_bytes(nn: int, K: int, C: int) -> int:
     """Shared memory of one block of the bf16 body (`csrc/interconv.cu`):
     offsets (float4) and indices of nn padded to 16 neighbours, then per
-    warp two feature tiles of max(nn_pad, K) rows of the widest slice's
-    channels (C up to 64) + 8 bf16 values."""
+    warp a ring of two feature tiles of max(min(nn_pad, 64), min(K, 32))
+    rows of the widest slice's channels (C padded, up to 64) + 8 bf16
+    values."""
     np_ = -(-nn // 16) * 16
-    return 20 * np_ + _MMA_WARPS * 2 * max(np_, K) * (min(C, _SLICE) + 8) * 2
+    rows = max(min(np_, _MMA_CHUNK), min(K, _MMA_KP))
+    return 20 * np_ + _MMA_WARPS * 2 * rows * (min(padded_channels(C, True), _SLICE) + 8) * 2
 
 
 def check_mma_geometry(nn: int, K: int, C: int) -> None:
-    """Raise on a contraction the bf16 body does not take."""
-    if C < _MMA_C or C % _MMA_C or K > _MMA_KP:
-        raise ValueError(f"interconv_t_bf16: needs C in {{8, 16, 24, ...}} and K <= "
-                         f"{_MMA_KP}, got C={C}, K={K}")
+    """Raise on a contraction the bf16 body does not take: only more
+    neighbours than their offsets and indices leave room for (20 bytes
+    each beside the ring: about 7,900 at 64 channels)."""
     if mma_smem_bytes(nn, K, C) > _SMEM_BYTES:
         raise ValueError(f"interconv_t_bf16: nn={nn} neighbours do not fit shared memory")
 
@@ -113,17 +124,36 @@ def tf32_smem_bytes(nn: int, C: int) -> int:
     """Shared memory of one block of the f32 body (`csrc/interconv.cu`):
     offsets (float4) and indices of nn padded to 32-neighbour chunks, then
     per warp a ring of two 32-row f32 tiles whose rows are the widest
-    slice's channels (C up to 64) rounded up to 16, plus 8, values long."""
+    slice's channels (C padded, up to 64) rounded up to 16, plus 8, values
+    long."""
     np_ = -(-nn // _TF32_CHUNK) * _TF32_CHUNK
-    return 20 * np_ + _MMA_WARPS * 2 * _TF32_CHUNK * (-(-min(C, _SLICE) // 16) * 16 + 8) * 4
+    Cs = min(padded_channels(C, False), _SLICE)
+    return 20 * np_ + _MMA_WARPS * 2 * _TF32_CHUNK * (-(-Cs // 16) * 16 + 8) * 4
 
 
 def check_tf32_geometry(nn: int, C: int) -> None:
-    """Raise on a contraction the f32 body does not take."""
-    if C < _TF32_C or C % _TF32_C:
-        raise ValueError(f"interconv_t: needs C in {{4, 8, 12, ...}}, got C={C}")
+    """Raise on a contraction the f32 body does not take: only more
+    neighbours than their offsets and indices leave room for."""
     if tf32_smem_bytes(nn, C) > _SMEM_BYTES:
         raise ValueError(f"interconv_t: nn={nn} neighbours do not fit shared memory")
+
+
+def w_smem_bytes(nn: int, A: int, K: int, feat: bool) -> int:
+    """Shared memory of one block of the occupancy conv (feat False) or the
+    C == 1 body (feat True): a chunk of at most 64 neighbours' offsets
+    (float4) and, for C == 1, their (A) f32 feature rows, and the staged
+    (A*K) f32 row.  Bounded in nn: no neighbour count is refused."""
+    cn = min(nn, _W_CHUNK)
+    return cn * 16 + -(-A * K // 4) * 4 * 4 + (cn * A * 4 if feat else 0)
+
+
+def pad_channels(feats, A: int, C: int, Cp: int):
+    """(B, P, A*C) rows -> (B, P, A*Cp), each anchor's C channels followed by
+    Cp - C zeros (a copy of the rows)."""
+    B, P, _ = feats.shape
+    out = feats.new_zeros((B, P, A, Cp))
+    out[..., :C] = feats.reshape(B, P, A, C)
+    return out.reshape(B, P, A * Cp)
 
 
 def _check_geometry(name, xyz, centers, nbr, rk):
@@ -142,9 +172,14 @@ def _check_geometry(name, xyz, centers, nbr, rk):
 def interconv_t_cuda(xyz, centers, nbr, feats, rk, sigma: float, A: int):
     """f32 feature rows launch `interconv_t`, bf16 rows `interconv_t_bf16`,
     both on the tensor cores (3xTF32 products for f32 accuracy, bf16
-    products).  Any width (f32: C % 4 == 0, bf16: C % 8 == 0): rows wider
-    than 64 channels run as channel slices (`csrc/interconv.cu:launch_slices`), as the 128-
-    and 256-channel EPN blocks of `epn_layer_num` 3 and 4 need."""
+    products).  Any width, any K and any nn up to the shared-memory check:
+    rows wider than 64 channels run as channel slices
+    (`csrc/interconv.cu:launch_slices`), as the 128- and 256-channel EPN
+    blocks of `epn_layer_num` 3 and 4 need; a C off the body's grain (f32:
+    C % 4, bf16: C % 8 or C < 8) runs on rows padded with zero channels and
+    t is sliced back, which costs a copy of the rows and of t, acceptable
+    at the widths no timed request runs (the reference's are multiples of
+    8)."""
     bf16 = feats.dtype == BF16
     name = "interconv_t_bf16" if bf16 else "interconv_t"
     device = _check_geometry(name, xyz, centers, nbr, rk)
@@ -162,15 +197,18 @@ def interconv_t_cuda(xyz, centers, nbr, feats, rk, sigma: float, A: int):
         check_mma_geometry(nn, K, C)
     else:
         check_tf32_geometry(nn, C)
-    out = torch.empty((B, c, A, K, C), dtype=feats.dtype, device=device)
+    Cp = padded_channels(C, bf16)
+    rows = feats if Cp == C else pad_channels(feats, A, C, Cp)
+    out = torch.empty((B, c, A, K, Cp), dtype=feats.dtype, device=device)
     _build.launch(name, f"etch_{name}", device, _build.ptr(xyz),
-                  _build.ptr(centers), _build.ptr(nbr), _build.ptr(feats),
-                  _build.ptr(rk), _build.ptr(out), B, P, c, nn, A, K, C, float(sigma))
-    return out
+                  _build.ptr(centers), _build.ptr(nbr), _build.ptr(rows),
+                  _build.ptr(rk), _build.ptr(out), B, P, c, nn, A, K, Cp, float(sigma))
+    return out if Cp == C else out[..., :C].contiguous()
 
 
 def interconv_t_c1_cuda(xyz, centers, nbr, feats, rk, sigma: float, A: int):
-    """1-channel rows (B, P, A), f32 or bf16, launch `interconv_t_c1`."""
+    """1-channel rows (B, P, A), f32 or bf16, launch `interconv_t_c1`; any
+    nn (neighbours staged 64 at a time)."""
     bf16 = feats.dtype == BF16
     device = _check_geometry("interconv_t_c1", xyz, centers, nbr, rk)
     _build.check_cuda("interconv_t_c1", (feats, BF16 if bf16 else torch.float32))
@@ -180,8 +218,6 @@ def interconv_t_c1_cuda(xyz, centers, nbr, feats, rk, sigma: float, A: int):
     if feats.shape != (B, P, A) or rk.shape[0] != A * K:
         raise ValueError(f"interconv_t_c1: feats {tuple(feats.shape)} is not (B, P, A) "
                          f"for A={A}")
-    if 4 * nn * (4 + A) > _SMEM_BYTES:
-        raise ValueError(f"interconv_t_c1: nn={nn} neighbours do not fit shared memory")
     out = torch.empty((B, c, A, K, 1), dtype=feats.dtype, device=device)
     _build.launch("interconv_t_c1", "etch_interconv_t_c1_bf16" if bf16 else
                   "etch_interconv_t_c1", device, _build.ptr(xyz), _build.ptr(centers),

@@ -91,16 +91,19 @@ def test_interconv_mma_geometry():
     neighbours, K=24): 42,240 bytes at C=32 (5 blocks an SM), 75,008 at C=64
     (3 blocks) and at every wider row, which runs in 64-channel slices
     (C = 72 and the 128- and 256-channel blocks of epn_layer_num 3 and 4);
-    widths that are not a multiple of 8, K > 32 and too many neighbours
-    raise."""
+    widths that are not a multiple of 8 (padded with zero channels), K > 32
+    (blocks of 32 kernel points) and balls of 400 (64-neighbour chunks) are
+    taken; only more neighbours than their offsets leave room for raise."""
     assert interconv.mma_smem_bytes(64, 24, 32) == 42240
     assert interconv.mma_smem_bytes(64, 24, 64) == 75008
     for C in (8, 16, 32, 64, 72, 128, 256):
         interconv.check_mma_geometry(64, 24, C)
     assert interconv.mma_smem_bytes(64, 24, 256) == 75008
     for nn, K, C in ((64, 24, 4), (64, 24, 12), (64, 33, 32), (400, 24, 64)):
-        with pytest.raises(ValueError):
-            interconv.check_mma_geometry(nn, K, C)
+        interconv.check_mma_geometry(nn, K, C)
+    assert interconv.mma_smem_bytes(64, 24, 12) == interconv.mma_smem_bytes(64, 24, 16)
+    with pytest.raises(ValueError):
+        interconv.check_mma_geometry(8000, 24, 64)
 
 
 @pytest.mark.parametrize("nn,C", [(11, 8), (64, 32)])
@@ -227,15 +230,15 @@ def test_interconv_tf32_geometry():
     neighbours): 42,240 bytes at C=32 (5 blocks an SM), 75,008 at C=64 (3
     blocks) and at every wider row, which runs in 64-channel slices (C = 68
     and the 128- and 256-channel blocks); widths that are not a multiple of
-    4 and too many neighbours raise."""
+    4 are taken (padded with zero channels), too many neighbours raise."""
     assert interconv.tf32_smem_bytes(64, 32) == 42240
     assert interconv.tf32_smem_bytes(64, 64) == 75008
-    for C in (4, 8, 12, 32, 60, 64, 68, 128, 256):
+    for C in (2, 4, 6, 8, 12, 32, 60, 64, 68, 128, 256):
         interconv.check_tf32_geometry(64, C)
     assert interconv.tf32_smem_bytes(64, 128) == 75008
-    for nn, C in ((64, 2), (64, 6), (9000, 64)):
-        with pytest.raises(ValueError):
-            interconv.check_tf32_geometry(nn, C)
+    assert interconv.tf32_smem_bytes(64, 6) == interconv.tf32_smem_bytes(64, 8)
+    with pytest.raises(ValueError):
+        interconv.check_tf32_geometry(9000, 64)
 
 
 def _padded_attention_matches(Bc, L, E, H, seed):

@@ -577,10 +577,18 @@ def test_interconv_t_f32_keeps_the_fp32_body(cuda):
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
-def test_interconv_t_bf16_refuses_unsupported_widths(cuda):
-    xyz, ctr, nbr, feats, rk, sigma = _conv_inputs(cuda, 4)
-    with pytest.raises(ValueError, match="C in"):
-        interconv.interconv_t_cuda(xyz, ctr, nbr, feats.to(torch.bfloat16), rk, sigma, 60)
+@pytest.mark.parametrize("C", [4, 12])
+def test_interconv_t_bf16_serves_widths_off_the_grid(cuda, C):
+    """bf16 rows of 4 and 12 channels (off the body's 8-channel grid, which
+    it refused before): the wrapper pads each anchor's row with zero
+    channels and slices t back, within the bf16 gate of the plain version."""
+    xyz, ctr, nbr, feats, rk, sigma = _conv_inputs(cuda, C)
+    fb = feats.to(torch.bfloat16)
+    before = _build.launches["interconv_t_bf16"]
+    out = interconv.interconv_t(xyz, ctr, nbr, fb, rk, sigma, 60)
+    assert _build.launches["interconv_t_bf16"] == before + 1
+    assert out.shape == (2, 100, 60, 24, C) and out.dtype == torch.bfloat16
+    _close_bf16(out, interconv.interconv_t_torch(xyz, ctr, nbr, fb, rk, sigma, 60))
 
 
 @pytest.mark.parametrize("E,hs", [(64, 1), (64, 2), (64, 4), (64, 8), (64, 16), (128, 1),
@@ -889,3 +897,203 @@ def test_widths_above_512_serve_on_the_card(cuda, variant):
     cfg = EtchConfig(num_point=1024, batch_size=2, **overrides)
     chip_smoke.small_step(torch, _build, variant, cfg, route,
                           fused_core=route != "bf16_chunked", full_width=True)
+
+
+# --- the width refusals ROADMAP C missed, and the Hopper ball query and C == 1
+# body ---
+
+def _request_balls(dev, B, seed=4):
+    """The four EPN convs' ball queries of a request at batch B: (queries,
+    supports, radius, nsample) of conv0 (2500 FPS centers of 5000 points),
+    conv1 (2500 of 2500), conv2 (the first 1250 of 2500) and conv3 (1250 of
+    1250)."""
+    from etch_tpu_torch.utils.config import EtchConfig, backbone_plan
+    plan = backbone_plan(EtchConfig(num_point=5000, batch_size=B))
+    xyz = _capsules(dev, B, 5000, seed)
+    c2500 = gather_points(xyz, fps.fps_cuda(xyz, 2500)).contiguous()
+    pts = {5000: xyz, 2500: c2500, 1250: c2500[:, :1250].contiguous()}
+    return [(pts[sp["n_out"]], pts[sp["n_in"]], sp["radius"], sp["n_neighbor"])
+            for sp in (plan[0][0], plan[0][1], plan[1][0], plan[1][1])]
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_ball_query_kernel_request_shapes(cuda, B):
+    """The request's four shapes at B = 1 (the widest lane groups) and B =
+    8: indices equal ball_query_torch's."""
+    for i, (q, s, r, ns) in enumerate(_request_balls(cuda, B)):
+        before = _build.launches["ball_query"]
+        out = ball_query.ball_query(q, s, r, ns)
+        assert _build.launches["ball_query"] == before + 1
+        assert torch.equal(out, ball_query.ball_query_torch(q, s, r, ns)), i
+
+
+@pytest.mark.parametrize("nsample", [1, 33, 64, 100, 262, 3000])
+@pytest.mark.parametrize("M,N", [(1, 7), (77, 300), (500, 2500)])
+def test_ball_query_kernel_any_nsample(cuda, nsample, M, N):
+    """nsample above 32 and above N (repeat-filled), partial, full and empty
+    balls, N not a multiple of the group or the tile, one query."""
+    q, s = _cloud(cuda, 2, M, nsample + M), _cloud(cuda, 2, N, nsample + N + 1)
+    for r in (0.01, 0.1, 0.3, 2.0):
+        assert torch.equal(ball_query.ball_query_cuda(q, s, r, nsample),
+                           ball_query.ball_query_torch(q, s, r, nsample)), r
+
+
+def test_ball_query_kernel_rows_in_place(cuda):
+    """Rows too long for shared memory (15,000 samples) are written in place
+    and still equal ball_query_torch's."""
+    q, s = _cloud(cuda, 1, 40, 11), _cloud(cuda, 1, 3000, 12)
+    for r in (0.05, 0.3):
+        assert torch.equal(ball_query.ball_query_cuda(q, s, r, 15000),
+                           ball_query.ball_query_torch(q, s, r, 15000))
+
+
+def test_ball_query_kernel_ties_on_the_radius(cuda):
+    """Supports at exactly the radius (a lattice, d2 == r2 in f32) are not in
+    the ball; strictly inside are, in index order."""
+    g = np.stack(np.meshgrid(*[np.arange(9, dtype=np.float32) * 0.125] * 3, indexing="ij"), -1)
+    s = torch.from_numpy(g.reshape(1, -1, 3)).to(cuda)
+    q = s[:, ::37].contiguous()
+    for r in (0.125, 0.25, float(np.sqrt(np.float32(2)) * np.float32(0.125))):
+        for ns in (4, 64):
+            assert torch.equal(ball_query.ball_query_cuda(q, s, r, ns),
+                               ball_query.ball_query_torch(q, s, r, ns))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nn", [1, 63, 65, 130, 1000])
+@pytest.mark.parametrize("c", [1, 226, 512])
+def test_interconv_t_c1_kernel_any_neighbours(cuda, dtype, nn, c):
+    """The C == 1 body (neighbours staged 64 at a time) at chunk boundaries,
+    above the old limit of 904 and at ragged chunks of centers: within the
+    f32 gate (and of the direct form in float64) or the bf16 gate."""
+    xyz, ctr, nbr, feats, rk, sigma = _conv_inputs(cuda, 1, P=1200, c=c, nn=nn, radius=0.3)
+    feats = feats.to(dtype)
+    out = interconv.interconv_t_c1_cuda(xyz, ctr, nbr, feats, rk, sigma, 60)
+    ref = interconv.interconv_t_c1_torch(xyz, ctr, nbr, feats, rk, sigma, 60)
+    assert out.shape == (2, c, 60, 24, 1) and out.dtype == dtype
+    if dtype == torch.float32:
+        from etch_tpu_torch.ops.grouping import group_points
+        w = interconv._weights(xyz.double(), ctr.double(), nbr, rk.double(), sigma)
+        exact = torch.einsum("bcnak,bcna->bcak", w.reshape(2, c, nn, 60, 24),
+                             group_points(feats.double(), nbr))[..., None]
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+        assert (out.double() - exact).abs().max() <= 1e-5 * exact.abs().max()
+    else:
+        _close_bf16(out, ref)
+
+
+@pytest.mark.parametrize("kernel_size", [2, 3])
+def test_interconv_t_c1_kernel_point_counts(cuda, kernel_size):
+    """30 and 66 kernel points: 6-point column groups, two rounds at 66."""
+    xyz, ctr, nbr, feats, _, sigma = _conv_inputs(cuda, 1, nn=64, radius=0.3)
+    kp = get_kernel_points(0.3, kernel_size)
+    rk = torch.from_numpy(np.einsum("aij,kj->aki", get_anchors(), kp).reshape(-1, 3).copy()).to(cuda)
+    out = interconv.interconv_t_c1_cuda(xyz, ctr, nbr, feats, rk, sigma, 60)
+    ref = interconv.interconv_t_c1_torch(xyz, ctr, nbr, feats, rk, sigma, 60)
+    assert out.shape == (2, 100, 60, kp.shape[0], 1)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("nn", [17, 64, 130])
+def test_interconv_ones_kernel_streams_neighbours(cuda, nn):
+    """The occupancy conv, now the C == 1 template without features, across
+    one, two and three neighbour chunks."""
+    xyz, ctr, nbr, rk, sigma = _occupancy_inputs(cuda, 226, nn)
+    out = interconv.interconv_ones_cuda(xyz, ctr, nbr, rk, sigma, 60)
+    ref = interconv.interconv_ones_torch(xyz, ctr, nbr, rk, sigma, 60)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def _rk(dev, radius, kernel_size):
+    kp = get_kernel_points(radius, kernel_size)
+    return torch.from_numpy(np.einsum("aij,kj->aki", get_anchors(), kp).reshape(-1, 3)
+                            .copy()).to(dev)
+
+
+@pytest.mark.parametrize("C", [8, 12, 32, 64, 128])
+@pytest.mark.parametrize("nn", [32, 64, 262])
+def test_interconv_t_bf16_kernel_point_blocks(cuda, C, nn):
+    """66 kernel points (kernel_size 3: three blocks of 32 on the grid) at
+    several widths and neighbour counts, within the bf16 gate."""
+    xyz, ctr, nbr, feats, _, sigma = _conv_inputs(cuda, C, nn=nn, radius=0.3)
+    rk = _rk(cuda, 0.3, 3)
+    fb = feats.to(torch.bfloat16)
+    out = interconv.interconv_t_cuda(xyz, ctr, nbr, fb, rk, sigma, 60)
+    assert out.shape == (2, 100, 60, 66, C)
+    _close_bf16(out, interconv.interconv_t_torch(xyz, ctr, nbr, fb, rk, sigma, 60))
+
+
+@pytest.mark.parametrize("C", [32, 64, 128])
+@pytest.mark.parametrize("nn", [65, 200, 262, 1000])
+def test_interconv_t_bf16_many_neighbours(cuda, C, nn):
+    """Balls of more than 192 neighbours at 64 channels (262: sampling_ratio
+    3.2), which no longer fit whole: 64-neighbour chunks through the ring."""
+    xyz, ctr, nbr, feats, rk, sigma = _conv_inputs(cuda, C, P=1200, nn=nn, radius=0.4)
+    fb = feats.to(torch.bfloat16)
+    out = interconv.interconv_t_cuda(xyz, ctr, nbr, fb, rk, sigma, 60)
+    _close_bf16(out, interconv.interconv_t_torch(xyz, ctr, nbr, fb, rk, sigma, 60))
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 5, 6, 7, 10, 12, 20, 36, 68, 72])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_interconv_t_any_channels(cuda, C, dtype):
+    """Any channel count: rows off the body's grain run padded with zero
+    channels and t is sliced back (C == 1 takes its own body)."""
+    xyz, ctr, nbr, feats, rk, sigma = _conv_inputs(cuda, C, nn=64, radius=0.3)
+    feats = feats.to(dtype)
+    out = interconv.interconv_t(xyz, ctr, nbr, feats, rk, sigma, 60)
+    assert out.shape == (2, 100, 60, 24, C) and out.dtype == dtype
+    ref = (interconv.interconv_t_c1_torch if C == 1 else interconv.interconv_t_torch)(
+        xyz, ctr, nbr, feats, rk, sigma, 60)
+    if dtype == torch.float32:
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    else:
+        _close_bf16(out, ref)
+
+
+@pytest.mark.parametrize("B,N,ns,c", [(2, 40, 16, 1024), (2, 30, 8, 1024), (2, 20, 48, 1024),
+                                     (2, 50, 16, 12), (2, 60, 8, 20), (2, 40, 16, 528),
+                                     (2, 40, 16, 520), (1, 5, 16, 1024), (2, 30, 16, 2048),
+                                     (2, 20, 3, 600), (2, 40, 16, 36)])
+def test_vector_attention_kernel_any_width(cuda, B, N, ns, c):
+    """A U-Net level of 1024 planes (cs = 128: the wide kernel), 2048, 600,
+    528 and 520 (cs 256, 75, 66, 65), and rows off the multiples of 8 (c =
+    12, 20, 36: padded with zero channels)."""
+    args = _va_inputs(cuda, B, N, ns, c)
+    before = _build.launches["vector_attention"]
+    out = vector_attention.vector_attention(*args)
+    assert _build.launches["vector_attention"] == before + 1
+    assert out.shape == (B * N, c)
+    _close_bf16(out, vector_attention.vector_attention_torch(*args))
+
+
+# the widths the JAX package takes that the card refused before this round
+# (EPN options are given as EPNConfig fields, chip_smoke.deep_config)
+_REPAIRED_9 = {
+    "kernel_size 3, bf16": (dict(epn=dict(kernel_size=3), use_bfloat16=True), "bf16"),
+    "sampling_ratio 3.2, bf16": (dict(epn=dict(sampling_ratio=3.2), use_bfloat16=True), "bf16"),
+    "6- and 12-channel convs, f32": (dict(epn_mlps=((6, 12), (64, 64))), "f32"),
+    "6- and 12-channel convs, bf16": (dict(epn_mlps=((6, 12), (64, 64)), use_bfloat16=True),
+                                      "bf16"),
+    "1024 U-Net planes, bf16": (dict(unet_planes_magnitude=(64, 128, 256, 512, 1024),
+                                     use_bfloat16=True), "bf16"),
+    "phase 4 variant, bf16": (None, "bf16"),
+}
+
+
+@pytest.mark.parametrize("variant", list(_REPAIRED_9))
+def test_repaired_widths_9_serve_on_the_card(cuda, variant):
+    """EPNConfig(kernel_size=3) (66 kernel points), EPNConfig(sampling_ratio=
+    3.2) (262 neighbours at every conv), 6- and 12-channel EPN convs (rows
+    padded to the bodies' grain) and a 1024-plane last U-Net level (the
+    wide vector attention), and chip_smoke.py's phase 4 variant with all of
+    them, at num_point=1024, B=2, random weights: in f32 as close to the CPU
+    as the phase-4 tolerances ask; in bf16 as accurate against the CPU's f32
+    step as the CPU's bf16 step (AS_ACCURATE_STEP), directions included,
+    over the input seeds chip_smoke.REPAIRED_SEEDS pooled; launching the
+    path's kernels and no other."""
+    import chip_smoke
+    overrides, route = _REPAIRED_9[variant]
+    cfg = chip_smoke.deep_config(chip_smoke.REPAIRED_9 if overrides is None else overrides)
+    chip_smoke.small_step(torch, _build, variant, cfg, route, full_width=True,
+                          seeds=chip_smoke.REPAIRED_SEEDS)

@@ -6,7 +6,7 @@ from the root of each checkout:
 
     PYTHONPATH=. python3 path/to/torch_kernels_ab.py [--rounds 10] [--reps 20]
         [--kernels dircore,dircore_wide,attention,fps,vector_attention,knn,ones_proj,
-                   interconv_ones,grouped_head]
+                   interconv_ones,grouped_head,ball_query,interconv_c1,interconv_t]
 
 The shapes: the direction core on 40,000 points of 60 anchor tokens (E=64,
 8 heads, V=128; `dircore_wide`: the same at E=128 and E=256, the wide
@@ -17,8 +17,12 @@ U-Nets' levels; kNN at the thirteen (k, queries, supports) shapes of a
 request; the occupancy conv with its projection (`ones_proj`, bf16 path)
 and without (`interconv_ones`, f32 path) at conv0's 512-center chunk and
 its ragged 452-center one; the grouped confidence head at R=40,000, c0=128,
-k=86.  FPS, vector attention, kNN and the occupancy convs also report their
-time a request, each shape's time times its launches a request, summed.
+k=86; ball query at the four EPN convs' shapes of a request (`ball_query`, and each at B = 1);
+the C == 1 body on f32 and bf16 rows at conv1's 512- and 452-center chunks
+(`interconv_c1`); both contractions at conv1's and conv3's 512-center
+chunks (`interconv_t`: f32 and bf16 rows, nn = 64, K = 24).  FPS, vector
+attention, kNN, ball query and the occupancy convs also report their time a
+request, each shape's time times its launches a request, summed.
 
 It imports `etch_tpu_torch` from the current directory, so one copy of this
 script times any checkout; its timing helpers and clouds are those of the
@@ -165,6 +169,55 @@ def main():
                 kernels[name] = (lambda ctr=ctr, nb=nb: interconv.interconv_ones_cuda(
                     xyz, ctr, nb, rk, spec["sigma"], 60))
                 per_request[name] = ("interconv_ones", launches)
+    if {"ball_query", "interconv_c1", "interconv_t"} & set(wanted):
+        from etch_tpu_torch.geometry.icosahedral import get_anchors
+        from etch_tpu_torch.geometry.kernel_points import get_kernel_points
+        from etch_tpu_torch.nn import interconv
+        from etch_tpu_torch.ops.ball_query import ball_query_cuda
+        from etch_tpu_torch.utils.config import EtchConfig, backbone_plan
+        plan = backbone_plan(EtchConfig(num_point=N, batch_size=B))
+        specs = (plan[0][0], plan[0][1], plan[1][0], plan[1][1])
+        c2500 = gather_points(xyz, fps_op(xyz, 2500)).contiguous()
+        pts = {N: xyz, 2500: c2500, 1250: c2500[:, :1250].contiguous()}
+
+        def rk_of(spec):
+            kp = get_kernel_points(spec["radius"], spec["kernel_size"])
+            return torch.from_numpy(np.ascontiguousarray(
+                np.einsum("aij,kj->aki", get_anchors(60), kp).reshape(-1, 3))).to(dev)
+    if "ball_query" in wanted:
+        for i, sp in enumerate(specs):   # one launch each a request; and at B = 1
+            q, s = pts[sp["n_out"]], pts[sp["n_in"]]
+            name = f"ball_query conv{i} {q.shape[1]}x{s.shape[1]}"
+            kernels[name] = (lambda q=q, s=s, sp=sp: ball_query_cuda(
+                q, s, sp["radius"], sp["n_neighbor"]))
+            per_request[name] = ("ball_query", 1)
+            q1, s1 = q[:1].contiguous(), s[:1].contiguous()
+            kernels[f"{name} B=1"] = (lambda q=q1, s=s1, sp=sp: ball_query_cuda(
+                q, s, sp["radius"], sp["n_neighbor"]))
+    if "interconv_c1" in wanted or "interconv_t" in wanted:
+        for i in ((1, 3) if "interconv_t" in wanted else (1,)):
+            sp = specs[i]
+            src, C = pts[sp["n_in"]], sp["dim_in"]
+            nb = ball_query_cuda(pts[sp["n_out"]], src, sp["radius"], sp["n_neighbor"])
+            rk = rk_of(sp)
+            for dt in (torch.float32, torch.bfloat16):
+                tag = "f32" if dt == torch.float32 else "bf16"
+                chunks = ((512, 4), (452, 1)) if i == 1 else ((512, 2),)
+                for c, launches in chunks:
+                    ctr, nbc = src[:, :c].contiguous(), nb[:, :c].contiguous()
+                    if "interconv_c1" in wanted and i == 1:
+                        f1 = randn(B, src.shape[1], 60).to(dt)
+                        name = f"interconv_c1 {tag} c={c}"
+                        kernels[name] = (lambda ctr=ctr, nbc=nbc, f1=f1, rk=rk, sp=sp, src=src:
+                                         interconv.interconv_t_c1_cuda(src, ctr, nbc, f1, rk,
+                                                                       sp["sigma"], 60))
+                        per_request[name] = (f"interconv_c1 {tag}", launches)
+                    if "interconv_t" in wanted and c == 512:
+                        fc = randn(B, src.shape[1], 60 * C).to(dt)
+                        name = f"interconv_t {tag} conv{i} c={c} C={C}"
+                        kernels[name] = (lambda ctr=ctr, nbc=nbc, fc=fc, rk=rk, sp=sp, src=src:
+                                         interconv.interconv_t_cuda(src, ctr, nbc, fc, rk,
+                                                                    sp["sigma"], 60))
     if "grouped_head" in wanted:
         from etch_tpu_torch.nn import grouped_head
         c0, kg = 128, 86
