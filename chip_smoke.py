@@ -66,12 +66,34 @@ built at first use).  Phases, each of which raises on failure:
   6. the single-scan entry point: `python -m etch_tpu_torch.cli.infer` (its
      `main`) on the repository's 4D-DRESS scan, f32, N=5000, synthetic body,
      into a temporary directory: both files written with the export schema;
-     then the latency of `run_scan` on a built pipeline.
+     then the latency of `run_scan` on a built pipeline;
+  7. training (`train_phase`): (a) each inter-conv autograd Function on the
+     card at a main-path chunk (the contraction on f32 and bf16 rows and on
+     1-channel rows, the occupancy conv, the occupancy conv with its
+     projection): the kernel forward against the plain version at phase 3's
+     tolerances, its gradients against the plain twin's autograd, and the
+     time of its backward (the plain twin recomputed); (b) one f32 train
+     step of `EtchConfig()` at N=1024, B=2 on the card against the CPU: the
+     loss and each gradient leaf's error relative to its largest value,
+     within TRAIN_LOSS_RTOL and TRAIN_GRAD_LIMIT (median over the leaves),
+     and the same step with a contraction forward that drops a neighbour
+     must exceed that limit; (c) the full-width f32 train step
+     (`make_train_step`, B=8, N=5000, capsule clouds with analytic ground
+     truth): a warm step, then TRAIN_TIMED_STEPS timed ones: ms a step, the
+     forward / backward / optimizer split, peak memory, each kernel's
+     launches a step, only the f32 kernel set, at shapes phase 3 timed;
+     and one bf16 train step at N=1024, B=2: finite, only the bf16
+     inter-conv kernels and the index kernels; (d) the NaN guard on the card; (e) `python -m etch_tpu_torch.cli.train`
+     (its `main`) on the repository's 4D-DRESS sample, two epochs at B=1,
+     then its last checkpoint through `build_pipeline(checkpoint_path=...)`:
+     the same forward as the trained model, and `run_scan` writes its files;
+     the proximity backend of the ground truth is printed.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on a path and per request, its headline shape's times, bound and
-library time, its gap summed over its shapes, and every shape's numbers
-with its counted launches a request); the last line is
+library time, its gap summed over its shapes, every shape's numbers with
+its counted launches a request, its launches a full-width train step and,
+for the inter-conv kernels, its Function's backward time); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the etch_tpu_torch package beside it, the script exits non-zero
 before printing either.
@@ -108,6 +130,24 @@ BF16_MEDIAN_REL = 1e-3  # and median |kernel - plain| / (|plain| + 1e-2) <= 1e-3
 # to 1.14 sound and 1.36-1.43 when one contraction slice drops a neighbour.
 AS_ACCURATE = 1.5
 AS_ACCURATE_STEP = 1.3
+# Phase 7 (b): an f32 train step at full width, card against CPU.  The
+# loss within TRAIN_LOSS_RTOL; each gradient leaf's max |card - CPU| over
+# its max |CPU|, leaves whose exact gradient is zero left out
+# (`train/state.py::ZERO_GRADIENT`), with a median within TRAIN_GRAD_LIMIT;
+# the same step with a contraction forward that drops a neighbour must read
+# above either (checked in every run).  Both limits sit between the sound
+# step (loss 7.0e-5, median 0.22) and the dropped neighbour (3.6e-4, 1.53)
+# on an H100 (PERF.md section 6).  The median is that high without a fault:
+# flax's BatchNorm variance E[x^2] - E[x]^2 in f32, over the deep U-Net
+# levels' few values (4 points a cloud at the coarsest), amplifies f32
+# rounding into the gradients, in JAX as in the port; the card's step with
+# the inter-conv plain versions in place of the kernels is printed beside
+# it as that floor.
+TRAIN_LOSS_RTOL = 2e-4
+TRAIN_GRAD_LIMIT = 0.6
+TRAIN_TIMED_STEPS = 3
+SAMPLE = ("datafolder/4D-DRESS/data_processed/model", "datafolder/4D-DRESS/data_processed/smplh",
+          "datafolder/gt_4D-Dress_data/npz", "datafolder/useful_data_4d-dress/train_ids.pkl")
 # the kernels each serving path launches (and no others): f32, bf16 with the
 # fused direction core, bf16 with the chunked core (fused_core=False, or one
 # direction layer), and each with the 1-channel conv of C1_MLPS
@@ -119,6 +159,11 @@ PATH_KERNELS = {
                      "attention", "vector_attention", "grouped_head"),
 }
 PATH_KERNELS["f32_c1"] = PATH_KERNELS["f32"] + ("interconv_t_c1",)
+# a train step launches the inter-conv kernels only (and the index kernels):
+# the f32 set, or with use_bfloat16 the bf16 contraction and the occupancy
+# conv with its projection
+PATH_KERNELS["train_bf16"] = ("fps", "knn", "ball_query", "interconv_ones_proj",
+                              "interconv_t_bf16")
 PATH_KERNELS["bf16_chunked_c1"] = PATH_KERNELS["bf16_chunked"] + ("interconv_t_c1",)
 C1_MLPS = ((1, 8), (8, 8))   # an EPN schedule whose second conv reads 1-channel rows
 SCAN = "datafolder/4D-DRESS/data_processed/model/00122_Inner_Take2_00011/00122_Inner_Take2_00011.obj"
@@ -1143,6 +1188,349 @@ def entry_point(torch, _build):
     return launches
 
 
+def function_checks(torch, dev):
+    """Phase 7 (a): each inter-conv autograd Function on the card at a
+    main-path chunk (B=8, 512 centers, 64 neighbours; the contraction at
+    conv1's geometry, the occupancy convs at conv0's): its kernel forward
+    against the plain version (f32: INTERCONV_RTOL; bf16: BF16_ATOL and
+    BF16_MEDIAN_REL), its gradients to the points, the centers and the rows
+    (or w) against the plain twin's autograd on the same cotangent (equal
+    up to the order of the index backward's atomic sums: 1e-5 of the
+    largest f32 gradient, BF16_ATOL of the largest bf16 one), and the
+    device time of its backward, the plain twin recomputed.  Returns
+    {kernel: backward ms}."""
+    from etch_tpu_torch.geometry.icosahedral import get_anchors
+    from etch_tpu_torch.geometry.kernel_points import get_kernel_points
+    from etch_tpu_torch.nn import interconv
+    from etch_tpu_torch.ops import ball_query
+    from etch_tpu_torch.utils.config import EtchConfig, backbone_plan
+
+    plan = backbone_plan(EtchConfig(num_point=N, batch_size=B))
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def geometry(spec, P):
+        pts = torch.from_numpy(capsule_clouds(B, P, seed=spec["dim_in"])).to(dev)
+        ctr = pts[:, :512].contiguous()
+        nbr = ball_query(ctr, pts, spec["radius"], spec["n_neighbor"])
+        kp = get_kernel_points(spec["radius"], spec["kernel_size"])
+        rk = np.einsum("aij,kj->aki", get_anchors(60), kp).reshape(-1, 3)
+        return pts, ctr, nbr, torch.from_numpy(np.ascontiguousarray(rk)).to(dev), spec["sigma"]
+
+    conv0, conv1 = plan[0][0], plan[0][1]
+    g1, g0 = geometry(conv1, 2500), geometry(conv0, N)
+    w = torch.randn((24, conv0["dim_out"]), device=dev, generator=gen) * 0.25
+    cases = []
+    for label, C, dt in (("interconv_t", 32, torch.float32), ("interconv_t_bf16", 32, torch.bfloat16),
+                         ("interconv_t_c1", 1, torch.float32), ("interconv_t_c1 bf16", 1, torch.bfloat16)):
+        pts, ctr, nbr, rk, sg = g1
+        feats = torch.randn((B, 2500, 60 * C), device=dev, generator=gen).to(dt)
+        plain = interconv.interconv_t_torch if C > 1 else interconv.interconv_t_c1_torch
+        cases.append((label, (pts, ctr, feats),
+                      lambda x, c, f, nbr=nbr, rk=rk, sg=sg: interconv.interconv_t(x, c, nbr, f, rk, sg, 60),
+                      lambda x, c, f, nbr=nbr, rk=rk, sg=sg, plain=plain: plain(x, c, nbr, f, rk, sg, 60)))
+    pts, ctr, nbr, rk, sg = g0
+    cases.append(("interconv_ones", (pts, ctr),
+                  lambda x, c: interconv.interconv_ones(x, c, nbr, rk, sg, 60),
+                  lambda x, c: interconv.interconv_ones_torch(x, c, nbr, rk, sg, 60)))
+    cases.append(("interconv_ones_proj", (pts, ctr, w),
+                  lambda x, c, ww: interconv.interconv_ones_proj(x, c, nbr, rk, sg, 60, ww),
+                  lambda x, c, ww: interconv.interconv_ones_proj_torch(x, c, nbr, rk, sg, 60, ww)))
+    backward_ms = {}
+    for label, inputs, fn, plain in cases:
+        ins = [t.clone().requires_grad_(True) for t in inputs]
+        out, ref = fn(*ins), plain(*ins)
+        err = (out.float() - ref.float()).abs()
+        scale = ref.float().abs().max().item()
+        if out.dtype == torch.bfloat16:
+            ok = err.max().item() <= BF16_ATOL * scale and median_rel(err, ref.float()) <= BF16_MEDIAN_REL
+        else:
+            ok = err.max().item() <= INTERCONV_RTOL * scale
+        if not ok:
+            raise AssertionError(f"{label} Function forward: max abs err {err.max().item()} of {scale}")
+        cot = torch.randn(out.shape, device=dev, generator=gen).to(out.dtype)
+        got = torch.autograd.grad(out, ins, cot, retain_graph=True)
+        want = torch.autograd.grad(ref, ins, cot)
+        worst = []
+        for a, b in zip(got, want):
+            tol = (BF16_ATOL if a.dtype == torch.bfloat16 else 1e-5) * b.float().abs().max().item()
+            d = (a.float() - b.float()).abs().max().item()
+            worst.append(d)
+            if not d <= tol:
+                raise AssertionError(f"{label} Function gradient: max abs err {d} > {tol}")
+        kernel = label.split()[0]
+        ms = cuda_ms(torch, lambda: torch.autograd.grad(out, ins, cot, retain_graph=True), 3)
+        if kernel not in backward_ms or " " not in label:
+            backward_ms[kernel] = ms
+        print(f"  Function {label:21s} forward max abs err {err.max().item():.3g}, gradients "
+              f"max abs err {', '.join(f'{d:.3g}' for d in worst)}; backward (plain twin) "
+              f"{ms:.3f} ms")
+        del out, ref, got, want, ins
+        torch.cuda.empty_cache()
+    return backward_ms
+
+
+def gradient_error(torch, card, cpu):
+    """Per-leaf max |card - cpu| / max |cpu| over the leaves whose gradient
+    is not zero by construction: (median, 90th percentile, max, worst
+    leaf)."""
+    from etch_tpu_torch.train.state import ZERO_GRADIENT
+    rows = sorted(((card[k].cpu() - g).abs().max().item() / max(g.abs().max().item(), 1e-30), k)
+                  for k, g in cpu.items() if not ZERO_GRADIENT.search(k))
+    vals = [r for r, _ in rows]
+    return (statistics.median(vals), vals[int(0.9 * (len(vals) - 1))], vals[-1], rows[-1][1])
+
+
+def train_step_card_vs_cpu(torch):
+    """Phase 7 (b): one f32 train step of EtchConfig() at N=1024, B=2, the
+    same weights and batch on the card and on the CPU; the card's step with
+    the plain inter-conv versions in place of the kernels (the rounding
+    floor); then the card's step with the contraction kernel's forward fed
+    neighbour lists whose second entry repeats the first (a dropped
+    neighbour), which must fail."""
+    from etch_tpu_torch.nn import interconv
+    from etch_tpu_torch.train.state import create_train_state, make_train_step
+    from etch_tpu_torch.train.synthetic import make_batch
+    from etch_tpu_torch.utils.config import EtchConfig
+
+    cfg = EtchConfig(num_point=1024, batch_size=2)
+    batch = make_batch(np.random.RandomState(7), 2, 1024)
+
+    def step(device):
+        model, state, opt = create_train_state(cfg, seed=0, device=device)
+        _, losses = make_train_step(model, opt, cfg)(state, batch)
+        return (float(losses["all_loss"]),
+                {k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = step("cpu")
+    cpu_s = time.perf_counter() - t0
+    readings = {}
+    sound, ones = interconv.interconv_t_cuda, interconv.interconv_ones_cuda
+
+    def dropped(xyz, centers, nbr, feats, rk, sigma, A):
+        nbr = nbr.clone()
+        nbr[..., 1] = nbr[..., 0]
+        return sound(xyz, centers, nbr, feats, rk, sigma, A)
+
+    for label, fns in (("sound", (sound, ones)),
+                       ("plain inter-conv", (interconv.interconv_t_torch,
+                                             interconv.interconv_ones_torch)),
+                       ("dropped neighbour", (dropped, ones))):
+        interconv.interconv_t_cuda, interconv.interconv_ones_cuda = fns
+        try:
+            loss, grads = step("cuda")
+        finally:
+            interconv.interconv_t_cuda, interconv.interconv_ones_cuda = sound, ones
+        readings[label] = (abs(loss - cpu_loss) / abs(cpu_loss), *gradient_error(torch, grads, cpu_grads))
+    for label, (lr, med, p90, mx, leaf) in readings.items():
+        print(f"train step N=1024 B=2 f32, card ({label}) vs CPU: loss rel err {lr:.3g}, "
+              f"gradient leaves' rel err median {med:.3g}, 90th pct {p90:.3g}, max {mx:.3g} "
+              f"({leaf})")
+    print(f"  (the CPU step took {cpu_s:.1f} s; limits: loss {TRAIN_LOSS_RTOL}, median "
+          f"{TRAIN_GRAD_LIMIT})")
+    lr, med = readings["sound"][:2]
+    if not (lr <= TRAIN_LOSS_RTOL and med <= TRAIN_GRAD_LIMIT):
+        raise AssertionError(f"train step card vs CPU: loss rel err {lr}, median {med}")
+    lr, med = readings["dropped neighbour"][:2]
+    if lr <= TRAIN_LOSS_RTOL or med <= TRAIN_GRAD_LIMIT:
+        raise AssertionError("train step card vs CPU: a dropped neighbour passes the limits")
+
+
+def full_width_train(torch, _build, timed_keys):
+    """Phase 7 (c): make_train_step at EtchConfig(), B=8, N=5000 on capsule
+    clouds with analytic ground truth: a warm step, then TRAIN_TIMED_STEPS
+    timed ones.  Returns {kernel: launches a step}."""
+    from etch_tpu_torch.train.state import create_train_state, make_train_step
+    from etch_tpu_torch.train.synthetic import make_batch
+    from etch_tpu_torch.utils.config import EtchConfig
+
+    cfg = EtchConfig(num_point=N, batch_size=B)
+    model, state, opt = create_train_state(cfg, seed=0, device="cuda")
+    step = make_train_step(model, opt, cfg)
+    batch = make_batch(np.random.RandomState(1), B, N)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    marks, hooks = {}, []
+
+    def mark(name):
+        def record(*_):
+            marks[name] = torch.cuda.Event(enable_timing=True)
+            marks[name].record()
+        return record
+
+    hooks += [model.register_forward_pre_hook(mark("start")),
+              model.register_forward_hook(mark("forward")),
+              opt.register_step_pre_hook(mark("backward")),
+              opt.register_step_post_hook(mark("optimizer"))]
+    _build.reset_launch_counts()
+    times, split, losses = [], [], None
+    for _ in range(TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, losses = step(state, batch)
+        mark("end")()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        split.append({k: marks[a].elapsed_time(marks[k]) for a, k in
+                      (("start", "forward"), ("forward", "backward"), ("backward", "optimizer"),
+                       ("optimizer", "end"))})
+    launches = dict(_build.launches)
+    shapes = {k: dict(v) for k, v in _build.shape_launches.items()}
+    for h in hooks:
+        h.remove()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ran = {k for k, v in launches.items() if v}
+    if ran != set(PATH_KERNELS["f32"]):
+        raise AssertionError(f"train step: kernels launched {sorted(ran)}, expected "
+                             f"{sorted(PATH_KERNELS['f32'])}")
+    untimed = {k: sorted(set(v) - timed_keys[k]) for k, v in shapes.items() if set(v) - timed_keys[k]}
+    if untimed:
+        raise AssertionError(f"train step: launches at shapes phase 3 did not time: {untimed}")
+    if not all(torch.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"train step: losses {losses}")
+    med = {k: statistics.median(s[k] for s in split) for k in split[0]}
+    per_step = {k: v / TRAIN_TIMED_STEPS for k, v in launches.items() if v}
+    print(f"train step B={B} N={N} f32 (EtchConfig()): warm {warm:.1f} s, timed ms "
+          f"{[round(t, 2) for t in times]}, median {statistics.median(times):.2f} ms/step; "
+          f"device ms (median): forward {med['forward']:.2f}, loss + backward "
+          f"{med['backward']:.2f}, Adam {med['optimizer']:.2f}, guard {med['end']:.2f}; peak "
+          f"memory {peak:.2f} GiB; losses "
+          f"{json.dumps({k: round(float(v), 5) for k, v in losses.items()})}")
+    print(f"  launches a train step: {json.dumps(per_step)}")
+    for k in sorted(shapes):
+        for key, n in sorted(shapes[k].items(), key=str):
+            print(f"    {k:17s} x{n / TRAIN_TIMED_STEPS:g}/step {key}")
+    del model, state, opt
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def bf16_train_step(torch, _build):
+    """Phase 7 (c), bf16: one train step of EtchConfig(use_bfloat16=True) at
+    N=1024, B=2 on the card: finite losses and gradients, and exactly the
+    bf16 training kernel set (no kernel without a backward)."""
+    from etch_tpu_torch.train.state import create_train_state, make_train_step
+    from etch_tpu_torch.train.synthetic import make_batch
+    from etch_tpu_torch.utils.config import EtchConfig
+
+    cfg = EtchConfig(num_point=1024, batch_size=2, use_bfloat16=True)
+    model, state, opt = create_train_state(cfg, seed=0, device="cuda")
+    _build.reset_launch_counts()
+    _, losses = make_train_step(model, opt, cfg)(state, make_batch(np.random.RandomState(7), 2, 1024))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.launches.items() if v}
+    if set(launches) != set(PATH_KERNELS["train_bf16"]):
+        raise AssertionError(f"bf16 train step: kernels launched {sorted(launches)}")
+    if not (all(torch.isfinite(v) for v in losses.values())
+            and all(torch.isfinite(p.grad).all() for p in model.parameters())):
+        raise AssertionError(f"bf16 train step: losses {losses}")
+    print(f"bf16 train step N=1024 B=2: losses "
+          f"{json.dumps({k: round(float(v), 5) for k, v in losses.items()})}; launches "
+          f"{json.dumps(launches)}")
+
+
+def nan_guard_on_card(torch):
+    """Phase 7 (d): a NaN batch leaves the parameters and Adam's state
+    bit-unchanged on the card while the BatchNorm statistics advance; a
+    clean batch then moves them (EtchConfig.tiny, N=512, B=2)."""
+    from etch_tpu_torch.train.state import create_train_state, make_train_step
+    from etch_tpu_torch.train.synthetic import make_batch
+    from etch_tpu_torch.utils.config import EtchConfig
+
+    cfg = EtchConfig.tiny(num_point=512, batch_size=2)
+    model, state, opt = create_train_state(cfg, seed=0, device="cuda")
+    step = make_train_step(model, opt, cfg)
+    clean = make_batch(np.random.RandomState(2), 2, 512)
+    state, _ = step(state, clean)
+
+    def snapshot():
+        out = []
+        for p in model.parameters():
+            st = opt.state[p]
+            out += [p.detach().clone(), st["exp_avg"].clone(), st["exp_avg_sq"].clone(),
+                    st["step"].clone()]
+        return out
+
+    before = snapshot()
+    stats = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    state, losses = step(state, dict(clean, vectors=np.full_like(clean["vectors"], np.nan)))
+    if torch.isfinite(losses["all_loss"]):
+        raise AssertionError("NaN guard: the NaN batch's loss is finite")
+    if not all(torch.equal(a, b) for a, b in zip(before, snapshot())):
+        raise AssertionError("NaN guard: a parameter or Adam state moved on a NaN batch")
+    if all(torch.equal(v, model.state_dict()[k]) for k, v in stats.items()):
+        raise AssertionError("NaN guard: the BatchNorm statistics did not advance")
+    state, losses = step(state, clean)
+    after = snapshot()
+    moved = [any(not torch.equal(a, b) for a, b in zip(before[i::4], after[i::4])) for i in range(4)]
+    if not (torch.isfinite(losses["all_loss"]) and all(moved) and int(state.step) == 3):
+        raise AssertionError(f"NaN guard: a clean batch moved {moved}, step {int(state.step)}")
+    print("NaN guard on the card: parameters, exp_avg, exp_avg_sq and Adam's step bit-unchanged "
+          "on a NaN batch, BatchNorm statistics advanced; a clean batch moved all four")
+
+
+def train_cli(torch):
+    """Phase 7 (e): `cli.train` on the repository's 4D-DRESS sample (two
+    epochs, B=1, N=5000, f32), then its last checkpoint served: the same
+    forward as the trained model, and run_scan's files."""
+    from etch_tpu_torch.cli import train
+    from etch_tpu_torch.data import proximity
+    from etch_tpu_torch.pipeline import build_pipeline, load_markerset
+    from etch_tpu_torch.utils.config import EtchConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    scan_dir, smpl_dir, info_dir, ids = (os.path.join(root, p) for p in SAMPLE)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out, state = train.main([
+            "--epochs", "2", "--batch_size", "1", "--num_workers", "0", "--device", "cuda",
+            "--output_folder", os.path.join(tmp, "exp"), "--scan_dir", scan_dir,
+            "--smpl_dir", smpl_dir, "--infopoints_dir", info_dir, "--activated_ids_path", ids,
+            "--markerset_path", os.path.join(root, MARKERSET_PATH)])
+        cli_s = time.perf_counter() - t0
+        ckpts = sorted(os.listdir(os.path.join(out, "checkpoints")))
+        if ckpts != ["0.pt", "1.pt"]:
+            raise AssertionError(f"cli/train wrote checkpoints {ckpts}")
+        with open(os.path.join(out, "log_all", "metrics.jsonl")) as fh:
+            rows = [json.loads(line) for line in fh]
+        pipe = build_pipeline(EtchConfig(epochs=2), load_markerset(os.path.join(root, MARKERSET_PATH)),
+                              checkpoint_path=os.path.join(out, "checkpoints"),
+                              allow_synthetic_body=True, device="cuda")
+        pts = torch.from_numpy(capsule_clouds(1, N, seed=9)).cuda()
+        with torch.no_grad():
+            a, b = pipe.model(pts), state.model(pts)
+        diff = max((a[k] - b[k]).abs().max().item() / (1 + b[k].abs().max().item()) for k in a)
+        if not diff <= 1e-6:
+            raise AssertionError(f"served checkpoint: forward differs from the trained model's by {diff}")
+        scan = os.path.join(root, SCAN)
+        result = pipe.run_scan(scan, seed=0)
+        obj, npz = pipe.export(result, scan, os.path.join(tmp, "served"))
+        if not (os.path.isfile(obj) and np.isfinite(np.load(npz)["joints"]).all()):
+            raise AssertionError(f"served checkpoint: run_scan wrote {obj}, {npz}")
+    print(f"cli/train (2 epochs, B=1, N={N}, f32, the bundled sample): {cli_s:.1f} s; epoch "
+          f"losses {[round(r['all_loss'], 5) for r in rows]}; epoch seconds "
+          f"{[round(r['epoch_time_s'], 2) for r in rows]}; ground truth's proximity backend: "
+          f"{proximity.last_backend}; the last checkpoint served through build_pipeline: "
+          f"forward {diff:.3g} from the trained model's, run_scan wrote {os.path.basename(obj)} and "
+          f"{os.path.basename(npz)}")
+
+
+def train_phase(torch, _build, kernels):
+    """Phase 7; returns ({kernel: launches a full-width train step},
+    {kernel: its Function's backward ms})."""
+    print("training:")
+    backward_ms = function_checks(torch, torch.device("cuda", 0))
+    train_step_card_vs_cpu(torch)
+    timed = {k: {e["key"] for e in v["shapes"]} for k, v in kernels.items()}
+    per_step = full_width_train(torch, _build, timed)
+    bf16_train_step(torch, _build)
+    nan_guard_on_card(torch)
+    train_cli(torch)
+    return per_step, backward_ms
+
+
 def main():
     import torch
 
@@ -1210,6 +1598,11 @@ def main():
     # 6. the single-scan entry point
     entry_point(torch, _build)
 
+    # 7. training
+    t0 = time.perf_counter()
+    train_launches, backward_ms = train_phase(torch, _build, kernels)
+    print(f"training phase: {time.perf_counter() - t0:.1f} s")
+
     idle = [name for name in SOURCES if not launches.get(name)]
     if idle:
         raise AssertionError(f"kernels never launched on a path: {idle}")
@@ -1219,7 +1612,8 @@ def main():
         {"name": name, "route": "cuda", "source": f"etch_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[name],
          "launches_per_request": per_request[name][0], "launch_path": per_request[name][1],
-         **kernels[name]}
+         "train_launches_per_step": train_launches.get(name, 0),
+         "train_backward_ms": backward_ms.get(name), **kernels[name]}
         for name, (src, replaces) in SOURCES.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

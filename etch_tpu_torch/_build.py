@@ -161,9 +161,15 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
 
 def check_cuda(name: str, *tensors_and_dtypes) -> torch.device:
     """Validate (tensor, dtype) pairs for a kernel: one CUDA device, the
-    expected dtype, contiguous.  Returns the device."""
+    expected dtype, contiguous, and no autograd graph to drop (a launch
+    writes a fresh tensor with no `grad_fn`: a tensor that needs a gradient
+    goes through an autograd Function, as the inter-conv's do, or not to a
+    kernel).  Returns the device."""
     device = tensors_and_dtypes[0][0].device
     for t, dtype in tensors_and_dtypes:
+        if t.requires_grad and torch.is_grad_enabled():
+            raise ValueError(f"{name}: an input needs a gradient, and the kernel has no "
+                             f"backward here (run it under torch.no_grad())")
         if t.device != device or t.device.type != "cuda":
             raise ValueError(f"{name}: all inputs must be on one CUDA device, "
                              f"got {t.device} and {device}")

@@ -2,15 +2,20 @@
 
 Port of `etch_tpu/body/smpl.py` (`SMPLModel`, `smpl_forward`,
 `MarkerSubModel` / `marker_submodel`, `marker_forward`,
-`synthetic_body_model`).  Every function is functional (no in-place writes
-into tensors that carry data), so `marker_forward` runs under
-`torch.func.vmap` / `jacfwd` in the LM fit.  Loading an SMPL .pkl
-(`load_smpl`) is not ported yet.
+`synthetic_body_model`, `load_smpl`).  Every function is functional (no
+in-place writes into tensors that carry data), so `marker_forward` runs
+under `torch.func.vmap` / `jacfwd` in the LM fit.
+
+Loader notes: SMPL .pkl releases variously contain numpy arrays, chumpy
+wrappers and scipy sparse matrices; `load_smpl` unpickles them without
+chumpy installed by stubbing chumpy classes and extracting their underlying
+ndarrays, as the JAX package's loader does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pickle
 
 import numpy as np
 import torch
@@ -18,6 +23,18 @@ import torch
 from etch_tpu_torch.geometry.so3 import rodrigues
 
 NUM_BODY_JOINTS = 23  # SMPL (excl. root)
+
+# smplx's standard SMPL surface-landmark vertex ids (public metadata of the
+# SMPL topology; order defines joints[24:45]), as in the JAX package.
+SMPL_LANDMARK_VERTEX_IDS = {
+    "nose": 332, "reye": 6260, "leye": 2800, "rear": 4071, "lear": 583,
+    "LBigToe": 3216, "LSmallToe": 3226, "LHeel": 3387,
+    "RBigToe": 6617, "RSmallToe": 6624, "RHeel": 6787,
+    "lthumb": 2746, "lindex": 2319, "lmiddle": 2445, "lring": 2556,
+    "lpinky": 2673,
+    "rthumb": 6191, "rindex": 5782, "rmiddle": 5905, "rring": 6016,
+    "rpinky": 6133,
+}
 
 
 @dataclasses.dataclass
@@ -47,6 +64,77 @@ class SMPLModel:
             self, v_template=move(self.v_template), shapedirs=move(self.shapedirs),
             posedirs=move(self.posedirs), J_regressor=move(self.J_regressor),
             lbs_weights=move(self.lbs_weights))
+
+
+def _to_np(x):
+    """ndarray from numpy / chumpy-stub / scipy sparse."""
+    if isinstance(x, np.ndarray):
+        return x
+    if hasattr(x, "toarray"):  # scipy sparse
+        return np.asarray(x.toarray())
+    if hasattr(x, "r"):        # live chumpy object
+        return np.asarray(x.r)
+    if isinstance(x, _ChStub):
+        return x.array()
+    return np.asarray(x)
+
+
+class _ChStub:
+    """Stand-in for chumpy objects during unpickling."""
+
+    def __init__(self, *a, **k):
+        self.__dict__["_state"] = {}
+
+    def __setstate__(self, state):
+        self.__dict__["_state"] = state
+
+    def array(self):
+        st = self.__dict__.get("_state", {})
+        if isinstance(st, dict):
+            for key in ("x", "a", "v"):
+                if key in st:
+                    return _to_np(st[key])
+        raise ValueError("cannot extract array from chumpy stub")
+
+
+class _SMPLUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.startswith("chumpy"):
+            return _ChStub
+        return super().find_class(module, name)
+
+
+def load_smpl(path: str, dtype=np.float32, device="cpu") -> SMPLModel:
+    """Load an SMPL pkl (any of the common release formats) onto `device`."""
+    with open(path, "rb") as f:
+        data = _SMPLUnpickler(f, encoding="latin1").load()
+
+    v_template = _to_np(data["v_template"]).astype(dtype)
+    shapedirs = _to_np(data["shapedirs"]).astype(dtype)
+    if shapedirs.shape[-1] > 10:
+        shapedirs = shapedirs[..., :10]
+    posedirs = _to_np(data["posedirs"]).astype(dtype)
+    # store as (207, V*3) so the pose blend is one matmul
+    posedirs = posedirs.reshape(-1, posedirs.shape[-1]).T.copy()
+    J_regressor = _to_np(data["J_regressor"]).astype(dtype)
+    weights = _to_np(data["weights"]).astype(dtype)
+    kintree = _to_np(data["kintree_table"]).astype(np.int64)
+    parents = kintree[0].astype(np.int32)
+    parents[0] = -1
+    faces = _to_np(data["f"]).astype(np.int32)
+    landmark_ids = np.array(list(SMPL_LANDMARK_VERTEX_IDS.values()), np.int32)
+
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return SMPLModel(
+        v_template=t(v_template),
+        shapedirs=t(shapedirs),
+        posedirs=t(posedirs),
+        J_regressor=t(J_regressor),
+        lbs_weights=t(weights),
+        parents=tuple(int(p) for p in parents),
+        faces=faces,
+        landmark_ids=landmark_ids,
+    )
 
 
 def _rigid_transforms(R: torch.Tensor, J: torch.Tensor, parents) -> torch.Tensor:

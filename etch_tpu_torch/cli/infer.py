@@ -8,9 +8,11 @@ on the CPU; `--device cpu` runs every kernel's plain version.
     python -m etch_tpu_torch.cli.infer --scan_path <scan.obj> \\
         --allow_synthetic_body --output_folder output
 
-`--model_path` (a trained checkpoint) and a real SMPL body are not ported
-yet (`pipeline.py`); `--allow_synthetic_body` runs with random weights and a
-synthetic body.
+`--model_path` is a checkpoint of the port's format (`train/checkpoint.py`:
+a training checkpoint directory or a `save_params` file; without it the
+weights are random); the body is the SMPL pkl under
+`datafolder/body_models/`, or with `--allow_synthetic_body` a synthetic one
+where that pkl is missing.
 """
 
 from __future__ import annotations

@@ -1,11 +1,15 @@
 """Top-level ETCH network: EPN encoder + direction/magnitude/confidence heads.
 
-Port of `etch_tpu/models/etch_net.py` (serving path, f32 or with
-`cfg.use_bfloat16` the bf16 policy of `nn/bf16.py`).  Input is a batch of
-scans (B, N, 3); outputs are per-point direction (B, N, 3, unit), magnitude
-(B, N, 1, scaled x10), 86-way part logits (B, N, 86) and confidence
-(B, N, 1), all f32.  Parameter names follow the flax tree so
-`convert.flax_to_state_dict` maps weights by path.
+Port of `etch_tpu/models/etch_net.py`, f32 or with `cfg.use_bfloat16` the
+bf16 policy of `nn/bf16.py`.  Input is a batch of scans (B, N, 3); outputs
+are per-point direction (B, N, 3, unit), magnitude (B, N, 1, scaled x10),
+86-way part logits (B, N, 86) and confidence (B, N, 1), all f32.
+Parameter names follow the flax tree so `convert.flax_to_state_dict` maps
+weights by path.  `forward(hitpts, train=True)` is the training forward:
+batch-statistic BatchNorms, the chunked and recomputed direction core with
+the plain attention, the plain vector attention and grouped head; the
+inter-conv kernels run in both modes (their backward is their plain twin's,
+`nn/interconv.py`).
 """
 
 from __future__ import annotations
@@ -40,7 +44,10 @@ class DirectionHead(nn.Module):
     `fused_core` is set (the counterpart of `ETCH_DIRCORE_PALLAS`, an
     attribute here, not an environment variable); otherwise the chunked
     core over `chunk` points, whose attention is the kernel of
-    `nn/attention.py` for bf16 tokens and plain f32 for f32 tokens."""
+    `nn/attention.py` for bf16 tokens and plain f32 for f32 tokens.
+    Training takes neither kernel (JAX: `not train`,
+    `models/etch_net.py:97`, `:112`): the chunked core with the plain
+    attention, each chunk recomputed in the backward pass."""
 
     def __init__(self, embed_dim: int, value_dim: int = 128, num_heads: int = 8,
                  num_layers: int = 2, chunk: int = 2048, dtype=None,
@@ -65,19 +72,21 @@ class DirectionHead(nn.Module):
         self.register_buffer("anchors", torch.from_numpy(np.ascontiguousarray(anchors)),
                              persistent=False)
 
-    def anchor_weights(self, tokens: torch.Tensor) -> torch.Tensor:
+    def anchor_weights(self, tokens: torch.Tensor, train: bool = False) -> torch.Tensor:
         """tokens (M, A, C) -> (M, A) f32 anchor weights."""
         params = dict(self.named_parameters())
         x = tokens if self.dtype is None else tokens.to(self.dtype).contiguous()
-        if self.fused_core and x.dtype == torch.bfloat16 and self.num_layers == 2:
+        bf16 = x.dtype == torch.bfloat16
+        if not train and self.fused_core and bf16 and self.num_layers == 2:
             return direction_core(x, params, self.num_heads, self.chunk)
-        attn = attention if x.dtype == torch.bfloat16 else attention_torch
-        return direction_core_chunked(x, params, self.num_heads, self.chunk, attn)
+        attn = attention if bf16 and not train else attention_torch
+        return direction_core_chunked(x, params, self.num_heads, self.chunk, attn,
+                                      remat=train)
 
-    def forward(self, equiv_feat: torch.Tensor) -> torch.Tensor:
+    def forward(self, equiv_feat: torch.Tensor, train: bool = False) -> torch.Tensor:
         """equiv_feat (B, N, A, C) -> unit directions (B, N, 3)."""
         B, N, A, C = equiv_feat.shape
-        w = self.anchor_weights(equiv_feat.reshape(B * N, A, C))
+        w = self.anchor_weights(equiv_feat.reshape(B * N, A, C), train)
         R = project_to_so3((w @ self.anchors).reshape(B * N, 3, 3))
         return R[..., :, 2].reshape(B, N, 3)
 
@@ -103,9 +112,9 @@ class EtchNet(nn.Module):
             planes=cfg.unet_planes_confidence, blocks=cfg.unet_blocks,
             strides=cfg.unet_strides, dtype=dtype)
 
-    def forward(self, hitpts: torch.Tensor):
+    def forward(self, hitpts: torch.Tensor, train: bool = False):
         """hitpts (B, N, 3) -> dict with direction, magnitude, part_labels
-        (logits) and confidences."""
+        (logits) and confidences; `train` takes the training forward."""
         B, N, _ = hitpts.shape
         xyz, feats = self.encoder(hitpts)                     # (B, K, A, C)
         K, A, C = feats.shape[1:]
@@ -117,12 +126,12 @@ class EtchNet(nn.Module):
         point_inv = point_equiv.mean(-1)                      # (B, N, C)
 
         geom = unet_geometry(hitpts, self.cfg.unet_strides, self.cfg.unet_nsamples)
-        logits, conf = self.confidence_encoder(hitpts, point_inv, geom)
+        logits, conf = self.confidence_encoder(hitpts, point_inv, geom, train)
         return {
             "part_labels": logits.float(),
             "confidences": conf.float(),
-            "direction": self.direction_head(point_equiv.transpose(2, 3)),
-            "magnitude": self.magnitude_encoder(hitpts, point_inv, geom).float(),
+            "direction": self.direction_head(point_equiv.transpose(2, 3), train),
+            "magnitude": self.magnitude_encoder(hitpts, point_inv, geom, train).float(),
         }
 
 

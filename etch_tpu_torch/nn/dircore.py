@@ -30,6 +30,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from etch_tpu_torch import _build
 from etch_tpu_torch.nn.attention import attention_torch
@@ -101,12 +102,21 @@ def _chunk_core(tokens, params, num_heads: int, attn):
     return (h @ params["wr"])[..., 0] + params["br"]
 
 
-def direction_core_chunked(tokens, params, num_heads: int, chunk: int, attn):
+def direction_core_chunked(tokens, params, num_heads: int, chunk: int, attn,
+                           remat: bool = False):
     """The chunked core: (M, A, E) tokens -> (M, A) f32 anchor weights, over
     chunks of `chunk` points, which bound the (chunk, H, A, A) logits of a
-    plain attention.  `attn(q, k, v, num_heads)` -> (Bc, A, E) f32."""
-    return torch.cat([_chunk_core(tokens[s:s + chunk], params, num_heads, attn)
-                      for s in range(0, tokens.shape[0], chunk)])
+    plain attention.  `attn(q, k, v, num_heads)` -> (Bc, A, E) f32.  With
+    `remat` (training) each chunk is recomputed in the backward pass
+    (`torch.utils.checkpoint`, the JAX package's `jax.checkpoint`), so its
+    logits are never kept."""
+    def core(t):
+        if remat:
+            return checkpoint(_chunk_core, t, params, num_heads, attn,
+                              use_reentrant=False, preserve_rng_state=False)
+        return _chunk_core(t, params, num_heads, attn)
+
+    return torch.cat([core(tokens[s:s + chunk]) for s in range(0, tokens.shape[0], chunk)])
 
 
 def _pad(t, *shape):

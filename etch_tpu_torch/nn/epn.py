@@ -8,7 +8,11 @@ dense (B, P, A, C) with A = 60 anchors, channels last, as in the JAX package.
     kernel-point contraction chunk by chunk over the sampled centers (512 at
     a time, as the JAX package streams them) and the (K*C -> C_out)
     projection, which stays a plain matmul.  The contraction is the CUDA
-    kernel of `nn/interconv.py` on the card.
+    kernel of `nn/interconv.py` on the card, whose autograd Function takes
+    the plain twin's gradient.  Under autograd each chunk is recomputed in
+    the backward pass (`torch.utils.checkpoint`, the JAX package's
+    `jax.checkpoint` around its chunk), so the (chunk, nn, A*K) weights are
+    never kept.
   - `IntraSO3Conv` uses the reference form: gather the 12 neighbouring
     anchors along `get_intra_idx()` and apply one (12*C -> C_out) matmul.
     The JAX package folds the gather into a block-sparse (A*C -> A*C_out)
@@ -29,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from etch_tpu_torch.geometry.icosahedral import get_anchors, get_intra_idx
 from etch_tpu_torch.geometry.kernel_points import get_kernel_points
@@ -96,25 +101,34 @@ class InterSO3Conv(nn.Module):
             # rows streamed in the compute type, flattened before the gather
             flat = feats.to(self.compute_dtype or feats.dtype).reshape(B, P, A * C)
             flat = flat.contiguous()
-        W = self.W.reshape(self.K * C, self.dim_out)
-        bf16 = self.compute_dtype is not None
         outs = []
         for s in range(0, P2, self.chunk):
             ctr = new_xyz[:, s:s + self.chunk].contiguous()
             idx = nbr[:, s:s + self.chunk].contiguous()
-            c = ctr.shape[1]
-            if flat is None and bf16:
-                # occupancy conv with the (K -> Co) projection fused in
-                o = interconv_ones_proj(xyz, ctr, idx, self.rk, self.sigma, A, W)
-                outs.append(o.float() + self.bias)
-                continue
-            if flat is None:
-                t = interconv_ones(xyz, ctr, idx, self.rk, self.sigma, A)
+            if torch.is_grad_enabled():
+                outs.append(checkpoint(self._chunk, xyz, ctr, idx, flat, use_reentrant=False,
+                                       preserve_rng_state=False))
             else:
-                t = interconv_t(xyz, ctr, idx, flat, self.rk, self.sigma, A)
-            # (K*C -> Co) projection, W row index k*C + c (K-major)
-            outs.append(mm(t.reshape(B, c, A, self.K * C), W, bf16) + self.bias)
+                outs.append(self._chunk(xyz, ctr, idx, flat))
         return new_xyz, torch.cat(outs, dim=1), sample_idx
+
+    def _chunk(self, xyz, ctr, idx, flat):
+        """One chunk of centers: contraction, then the (K*C -> Co)
+        projection -> (B, c, A, Co) f32."""
+        B, c = idx.shape[:2]
+        A, C = self.A, self.dim_in
+        W = self.W.reshape(self.K * C, self.dim_out)
+        bf16 = self.compute_dtype is not None
+        if flat is None and bf16:
+            # occupancy conv with the (K -> Co) projection fused in
+            o = interconv_ones_proj(xyz, ctr, idx, self.rk, self.sigma, A, W)
+            return o.float() + self.bias
+        if flat is None:
+            t = interconv_ones(xyz, ctr, idx, self.rk, self.sigma, A)
+        else:
+            t = interconv_t(xyz, ctr, idx, flat, self.rk, self.sigma, A)
+        # (K*C -> Co) projection, W row index k*C + c (K-major)
+        return mm(t.reshape(B, c, A, self.K * C), W, bf16) + self.bias
 
 
 class IntraSO3Conv(nn.Module):

@@ -27,6 +27,17 @@ Shapes: xyz (B, P, 3), centers (B, c, 3), nbr (B, c, nn) int32, feats
 (B, P, A*C) contiguous (the row layout `materialize_rows` pins on the TPU),
 rk (A*K, 3) anchor-rotated kernel points.  CUDA tensors launch the kernel,
 CPU tensors run the `*_torch` plain version.
+
+Autograd: `interconv_t`, `interconv_ones` and `interconv_ones_proj` go
+through a `torch.autograd.Function` each (`InterconvT`, `InterconvOnes`,
+`InterconvOnesProj`).  The forward is the kernel on the card (the plain
+version on the CPU); the backward recomputes the plain twin under
+`torch.enable_grad()` and takes its autograd, as the JAX package's custom
+VJPs run the XLA reference, never Pallas
+(`etch_tpu/nn/pallas_interconv.py:355-371`, `:408-412`).  Gradients flow to
+xyz, centers, feats and the projection w; nbr and rk get none.  float64
+operands (the gradient checks) skip the bf16 rounding of the occupancy
+projection: the function there is the unrounded one.
 """
 
 from __future__ import annotations
@@ -65,9 +76,11 @@ def interconv_t_torch(xyz, centers, nbr, feats, rk, sigma: float, A: int):
     B, c, nn = nbr.shape
     K = rk.shape[0] // A
     C = feats.shape[-1] // A
-    bf16 = feats.dtype == BF16
-    w = rnd(_weights(xyz, centers, nbr, rk, sigma), bf16).reshape(B, c, nn, A, K)
-    gf = group_points(feats, nbr).float().reshape(B, c, nn, A, C)
+    w = _weights(xyz, centers, nbr, rk, sigma)
+    if feats.dtype == BF16:
+        w = rnd(w)
+    w = w.reshape(B, c, nn, A, K)
+    gf = group_points(feats, nbr).to(w.dtype).reshape(B, c, nn, A, C)
     return torch.einsum("bcnak,bcnad->bcakd", w, gf).to(feats.dtype)
 
 
@@ -76,7 +89,7 @@ def interconv_t_c1_torch(xyz, centers, nbr, feats, rk, sigma: float, A: int):
     in the type of feats, from exact f32 weights and f32 sums."""
     B, c, nn = nbr.shape
     w = _weights(xyz, centers, nbr, rk, sigma).reshape(B, c, nn, A, -1)
-    gf = group_points(feats, nbr).float()                          # (B,c,nn,A)
+    gf = group_points(feats, nbr).to(w.dtype)                      # (B,c,nn,A)
     return torch.einsum("bcnak,bcna->bcak", w, gf)[..., None].to(feats.dtype)
 
 
@@ -88,8 +101,10 @@ def interconv_ones_torch(xyz, centers, nbr, rk, sigma: float, A: int):
 
 def interconv_ones_proj_torch(xyz, centers, nbr, rk, sigma: float, A: int, w):
     """Plain occupancy conv + (K -> Co) projection, w (K, Co) -> (B, c, A, Co)
-    bf16."""
+    bf16 (float64 for float64 operands: no rounding)."""
     t = interconv_ones_torch(xyz, centers, nbr, rk, sigma, A)
+    if w.dtype == torch.float64:
+        return t @ w
     return (rnd(t) @ rnd(w)).to(BF16)
 
 
@@ -256,33 +271,110 @@ def interconv_ones_proj_cuda(xyz, centers, nbr, rk, sigma: float, A: int, w):
     return out
 
 
+def _forward_route(name, xyz, cuda, plain):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if xyz.is_cuda:
+        return cuda
+    if xyz.device.type == "cpu":
+        return plain
+    raise ValueError(f"{name}: unsupported device {xyz.device}")
+
+
+def _plain_grads(ctx, g, plain, diff):
+    """Gradients of `plain(*diff)` against cotangent g for the inputs in
+    `diff` that need one (None for the rest), from the plain twin's autograd
+    on detached copies of the saved inputs."""
+    need = ctx.needs_input_grad[:len(diff)]
+    if not any(need):
+        return (None,) * len(diff)
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(n) for t, n in zip(diff, need)]
+        got = iter(torch.autograd.grad(plain(*ins), [t for t, n in zip(ins, need) if n], g))
+    return tuple(next(got) if n else None for n in need)
+
+
+def _contraction(feats, A: int, cuda: bool):
+    """The contraction's kernel (cuda) or plain version for these rows:
+    1-channel rows take the C == 1 body."""
+    if feats.shape[-1] == A:
+        return interconv_t_c1_cuda if cuda else interconv_t_c1_torch
+    return interconv_t_cuda if cuda else interconv_t_torch
+
+
+class InterconvT(torch.autograd.Function):
+    """The contraction with gradients to xyz, centers and feats."""
+
+    @staticmethod
+    def forward(ctx, xyz, centers, feats, nbr, rk, sigma: float, A: int):
+        ctx.save_for_backward(xyz, centers, feats, nbr, rk)
+        ctx.sigma, ctx.A = sigma, A
+        fn = _forward_route("interconv_t", xyz, _contraction(feats, A, True),
+                            _contraction(feats, A, False))
+        return fn(xyz, centers, nbr, feats, rk, sigma, A)
+
+    @staticmethod
+    def backward(ctx, g):
+        xyz, centers, feats, nbr, rk = ctx.saved_tensors
+        plain = _contraction(feats, ctx.A, False)
+        grads = _plain_grads(ctx, g, lambda x, ct, f: plain(x, ct, nbr, f, rk, ctx.sigma, ctx.A),
+                             (xyz, centers, feats))
+        return grads + (None,) * 4
+
+
+class InterconvOnes(torch.autograd.Function):
+    """The occupancy conv with gradients to xyz and centers."""
+
+    @staticmethod
+    def forward(ctx, xyz, centers, nbr, rk, sigma: float, A: int):
+        ctx.save_for_backward(xyz, centers, nbr, rk)
+        ctx.sigma, ctx.A = sigma, A
+        fn = _forward_route("interconv_ones", xyz, interconv_ones_cuda, interconv_ones_torch)
+        return fn(xyz, centers, nbr, rk, sigma, A)
+
+    @staticmethod
+    def backward(ctx, g):
+        xyz, centers, nbr, rk = ctx.saved_tensors
+        grads = _plain_grads(
+            ctx, g, lambda x, ct: interconv_ones_torch(x, ct, nbr, rk, ctx.sigma, ctx.A),
+            (xyz, centers))
+        return grads + (None,) * 4
+
+
+class InterconvOnesProj(torch.autograd.Function):
+    """The occupancy conv with its projection, gradients to xyz, centers and
+    the projection w."""
+
+    @staticmethod
+    def forward(ctx, xyz, centers, w, nbr, rk, sigma: float, A: int):
+        ctx.save_for_backward(xyz, centers, w, nbr, rk)
+        ctx.sigma, ctx.A = sigma, A
+        fn = _forward_route("interconv_ones_proj", xyz, interconv_ones_proj_cuda,
+                            interconv_ones_proj_torch)
+        return fn(xyz, centers, nbr, rk, sigma, A, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        xyz, centers, w, nbr, rk = ctx.saved_tensors
+        grads = _plain_grads(
+            ctx, g,
+            lambda x, ct, ww: interconv_ones_proj_torch(x, ct, nbr, rk, ctx.sigma, ctx.A, ww),
+            (xyz, centers, w))
+        return grads + (None,) * 4
+
+
 def interconv_t(xyz, centers, nbr, feats, rk, sigma: float, A: int):
     """t (B, c, A, K, C): kernel on CUDA, plain version on CPU; C == 1 rows
-    take the 1-channel body."""
-    c1 = feats.shape[-1] == A
-    if xyz.is_cuda:
-        return (interconv_t_c1_cuda if c1 else interconv_t_cuda)(
-            xyz, centers, nbr, feats, rk, sigma, A)
-    if xyz.device.type == "cpu":
-        return (interconv_t_c1_torch if c1 else interconv_t_torch)(
-            xyz, centers, nbr, feats, rk, sigma, A)
-    raise ValueError(f"interconv_t: unsupported device {xyz.device}")
+    take the 1-channel body.  Differentiable (`InterconvT`)."""
+    return InterconvT.apply(xyz, centers, feats, nbr, rk, sigma, A)
 
 
 def interconv_ones(xyz, centers, nbr, rk, sigma: float, A: int):
-    """Occupancy t (B, c, A, K): kernel on CUDA, plain version on CPU."""
-    if xyz.is_cuda:
-        return interconv_ones_cuda(xyz, centers, nbr, rk, sigma, A)
-    if xyz.device.type == "cpu":
-        return interconv_ones_torch(xyz, centers, nbr, rk, sigma, A)
-    raise ValueError(f"interconv_ones: unsupported device {xyz.device}")
+    """Occupancy t (B, c, A, K): kernel on CUDA, plain version on CPU.
+    Differentiable (`InterconvOnes`)."""
+    return InterconvOnes.apply(xyz, centers, nbr, rk, sigma, A)
 
 
 def interconv_ones_proj(xyz, centers, nbr, rk, sigma: float, A: int, w):
     """Occupancy conv projected by w (K, Co) -> (B, c, A, Co) bf16: kernel on
-    CUDA, plain version on CPU."""
-    if xyz.is_cuda:
-        return interconv_ones_proj_cuda(xyz, centers, nbr, rk, sigma, A, w)
-    if xyz.device.type == "cpu":
-        return interconv_ones_proj_torch(xyz, centers, nbr, rk, sigma, A, w)
-    raise ValueError(f"interconv_ones_proj: unsupported device {xyz.device}")
+    CUDA, plain version on CPU.  Differentiable (`InterconvOnesProj`)."""
+    return InterconvOnesProj.apply(xyz, centers, w, nbr, rk, sigma, A)

@@ -1,12 +1,23 @@
-"""Point Transformer U-Net heads on dense batched clouds, eval path.
+"""Point Transformer U-Net heads on dense batched clouds.
 
 Port of `etch_tpu/nn/point_transformer.py`.  Module and parameter names
 follow the flax tree (`Dense_0`, `BatchNorm_0`, `linear_q`, `w_bn0_scale`,
-...) so `convert.py` maps weights by path.  Only the serving (eval) path is
-ported: BatchNorm is the affine of its running statistics, and the
-vector-attention layer folds both of its BN affines as the JAX inference
-path does (`:191-209`).  The `nn.scan`-stacked `enc{l}_blocks` of the JAX
-package are a plain `ModuleList` here.
+...) so `convert.py` maps weights by path.  The `nn.scan`-stacked
+`enc{l}_blocks` of the JAX package are a plain `ModuleList` here.  Every
+`forward` takes `train`, as the flax modules do:
+
+  - eval (`train=False`, the serving path): BatchNorm is the affine of its
+    running statistics, and the vector-attention layer folds both of its BN
+    affines as the JAX inference path does (`:191-209`).
+  - train: BatchNorm takes its statistics over every leading axis in f32
+    with the biased variance (flax's E[x^2] - E[x]^2), and moves
+    `running_* = 0.9 old + 0.1 batch`, the biased variance included (flax's
+    rule, not `torch.nn.BatchNorm1d`'s); the vector attention runs the JAX
+    package's explicit train chain (`:168-189`), two batch-statistic BNs
+    inside the w-chain, never the kernel; the grouped confidence head runs
+    its plain version; every U-Net block is recomputed in the backward pass
+    (`torch.utils.checkpoint`, where the JAX package has `nn.remat`), and a
+    recomputed block does not move the running statistics a second time.
 
 `dtype=torch.bfloat16` is the bf16 serving path (flax `dtype=bfloat16`):
 every Dense and BatchNorm returns bf16 where flax does (`Dense`,
@@ -21,13 +32,45 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from etch_tpu_torch.nn.bf16 import mm
-from etch_tpu_torch.nn.grouped_head import grouped_head
+from etch_tpu_torch.nn.grouped_head import grouped_head, grouped_head_torch
 from etch_tpu_torch.nn.vector_attention import vector_attention
 from etch_tpu_torch.ops import fps, gather_points, group_points, knn, knn_interpolate
 
 _BN_EPS = 1e-5
+_BN_MOM = 0.9  # torch BatchNorm1d momentum 0.1 == flax momentum 0.9
+# above 0 while a checkpointed block recomputes its forward for the backward
+_recomputing = [0]
+
+
+def remat(fn, *args):
+    """fn(*args) under `torch.utils.checkpoint` (non-reentrant): its
+    activations are recomputed in the backward pass instead of kept.  The
+    recomputation leaves the BatchNorm running statistics alone, so they
+    advance once a step, as flax's functional update does."""
+    first = [True]
+
+    def run(*a):
+        if first[0]:
+            first[0] = False
+            return fn(*a)
+        _recomputing[0] += 1
+        try:
+            return fn(*a)
+        finally:
+            _recomputing[0] -= 1
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+@torch.no_grad()
+def update_running(running: torch.Tensor, batch: torch.Tensor) -> None:
+    """running = 0.9 running + 0.1 batch (flax BatchNorm momentum 0.9), except
+    while a checkpointed block recomputes."""
+    if not _recomputing[0]:
+        running.copy_(_BN_MOM * running + (1 - _BN_MOM) * batch)
 
 
 class Dense(nn.Linear):
@@ -48,9 +91,11 @@ class Dense(nn.Linear):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis (flax nn.BatchNorm with
-    use_running_average=True): f32 arithmetic, the result in `dtype` when
-    set."""
+    """BatchNorm over the last axis (flax nn.BatchNorm, momentum 0.9): f32
+    arithmetic, the result in `dtype` when set.  Eval uses the running
+    statistics; train the batch's, over every leading axis, with flax's
+    fast biased variance max(0, E[x^2] - E[x]^2), and updates the running
+    ones."""
 
     def __init__(self, c: int, dtype=None):
         super().__init__()
@@ -60,9 +105,17 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale = torch.rsqrt(self.running_var + _BN_EPS) * self.weight
-        y = (x - self.running_mean) * scale + self.bias
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        mean, var = self.running_mean, self.running_var
+        if train:
+            xf = x.float()
+            dims = tuple(range(x.ndim - 1))
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            update_running(self.running_mean, mean)
+            update_running(self.running_var, var)
+        scale = torch.rsqrt(var + _BN_EPS) * self.weight
+        y = (x - mean) * scale + self.bias
         return y if self.dtype is None else y.to(self.dtype)
 
 
@@ -120,11 +173,13 @@ class PointTransformerLayer(nn.Module):
         self.register_buffer("w_bn1_mean", torch.zeros(cs))
         self.register_buffer("w_bn1_var", torch.ones(cs))
 
-    def forward(self, p, x, idx, p_r):
+    def forward(self, p, x, idx, p_r, train: bool = False):
         B, N, ns = idx.shape
         c = x.shape[-1]
         R = B * N
-        pe = self.linear_p1(torch.relu(self.linear_p_bn(self.linear_p0(p_r))))
+        pe = self.linear_p1(torch.relu(self.linear_p_bn(self.linear_p0(p_r), train)))
+        if train:
+            return self._train_chain(x, idx, pe)
         # eval BatchNorms folded to affines; the Dense-0 bias folds into BN-1
         s0e = self.w_bn0_scale * torch.rsqrt(self.w_bn0_var + _BN_EPS)
         a0 = torch.stack([s0e, self.w_bn0_bias - self.w_bn0_mean * s0e])
@@ -134,6 +189,35 @@ class PointTransformerLayer(nn.Module):
             self.linear_q(x).reshape(R, c), self.linear_k(x), self.linear_v(x),
             idx, pe.reshape(R, ns, c), a0, self.w0_kernel, a1,
             self.w1_kernel, self.w1_bias)
+        return out.reshape(B, N, c).to(x.dtype)
+
+    @staticmethod
+    def _batch_norm(w, mean, var, scale, bias):
+        """The w-chain's train BN (`jnp.mean` / `jnp.var` over the leading
+        axes, as the JAX chain takes them) and its running-stat update."""
+        mu = w.mean((0, 1, 2))
+        v = w.var((0, 1, 2), unbiased=False)
+        update_running(mean, mu)
+        update_running(var, v)
+        return (w - mu) * (scale / torch.sqrt(v + _BN_EPS)) + bias
+
+    def _train_chain(self, x, idx, pe):
+        """The JAX package's explicit train chain, f32 from the sum on."""
+        B, N, ns = idx.shape
+        c = x.shape[-1]
+        cs = self.w0_kernel.shape[1]
+        xq = self.linear_q(x)
+        gk = group_points(self.linear_k(x), idx)                    # (B, N, ns, c)
+        gv = group_points(self.linear_v(x), idx)
+        w = (gk - xq[:, :, None, :] + pe).float()
+        w = torch.relu(self._batch_norm(w, self.w_bn0_mean, self.w_bn0_var,
+                                        self.w_bn0_scale, self.w_bn0_bias))
+        w = w @ self.w0_kernel + self.w0_bias
+        w = torch.relu(self._batch_norm(w, self.w_bn1_mean, self.w_bn1_var,
+                                        self.w_bn1_scale, self.w_bn1_bias))
+        w = torch.softmax(w @ self.w1_kernel + self.w1_bias, dim=2)  # (B, N, ns, cs)
+        v = (gv + pe).float().reshape(B, N, ns, c // cs, cs)
+        out = (v * w[:, :, :, None, :]).sum(2)                      # (B, N, s, cs)
         return out.reshape(B, N, c).to(x.dtype)
 
 
@@ -148,12 +232,12 @@ class TransitionDown(nn.Module):
                              bias=False, dtype=dtype)
         self.BatchNorm_0 = BatchNorm(out_planes, dtype)
 
-    def forward(self, p, x, down=None, down_pr=None):
+    def forward(self, p, x, down=None, down_pr=None, train: bool = False):
         if self.stride == 1:
-            return p, torch.relu(self.BatchNorm_0(self.Dense_0(x)))
+            return p, torch.relu(self.BatchNorm_0(self.Dense_0(x), train))
         idx, nidx = down
         h = torch.cat([down_pr, group_points(x, nidx)], dim=-1)   # promotes as jnp
-        h = torch.relu(self.BatchNorm_0(self.Dense_0(h)))
+        h = torch.relu(self.BatchNorm_0(self.Dense_0(h), train))
         return gather_points(p, idx), h.amax(dim=2)
 
 
@@ -175,15 +259,15 @@ class TransitionUp(nn.Module):
             self.linear2 = Dense(coarse_planes, planes, dtype=dtype)
             self.bn2 = BatchNorm(planes, dtype)
 
-    def forward(self, p1, x1, p2=None, x2=None, up=None):
+    def forward(self, p1, x1, p2=None, x2=None, up=None, train: bool = False):
         if self.is_head:
             # jnp.mean of bf16 sums in f32 and returns bf16
             mean = x1.float().mean(dim=1, keepdim=True).to(x1.dtype)
             g = torch.relu(self.linear2(mean))
             h = torch.cat([x1, g.expand_as(x1)], dim=-1)
-            return torch.relu(self.bn1(self.linear1(h)))
-        a = torch.relu(self.bn1(self.linear1(x1)))
-        b = torch.relu(self.bn2(self.linear2(x2)))
+            return torch.relu(self.bn1(self.linear1(h), train))
+        a = torch.relu(self.bn1(self.linear1(x1), train))
+        b = torch.relu(self.bn2(self.linear2(x2), train))
         return a + knn_interpolate(p2, p1, b, k=3, use_sqrt=True, idx_dist=up)
 
 
@@ -199,10 +283,10 @@ class PointTransformerBlock(nn.Module):
         self.linear3 = Dense(planes, planes, bias=False, dtype=dtype)
         self.bn3 = BatchNorm(planes, dtype)
 
-    def forward(self, p, x, idx, p_r):
-        h = torch.relu(self.bn1(self.linear1(x)))
-        h = torch.relu(self.bn2(self.transformer2(p, h, idx, p_r)))
-        h = self.bn3(self.linear3(h))
+    def forward(self, p, x, idx, p_r, train: bool = False):
+        h = torch.relu(self.bn1(self.linear1(x), train))
+        h = torch.relu(self.bn2(self.transformer2(p, h, idx, p_r, train), train))
+        h = self.bn3(self.linear3(h), train)
         return torch.relu(h + x)
 
 
@@ -233,24 +317,30 @@ class PointTransformerUNet(nn.Module):
             self.add_module(f"dec{lvl + 1}_block1",
                             PointTransformerBlock(planes[lvl], share_planes, dtype))
 
-    def forward(self, p, x, geom):
+    def forward(self, p, x, geom, train: bool = False):
+        def block(blk, p, x, g):
+            # training recomputes each block's activations in the backward
+            # pass (JAX: nn.remat around every block)
+            if train:
+                return remat(blk, p, x, g["self"], g["p_r"], True)
+            return blk(p, x, g["self"], g["p_r"])
+
         skips = []
         for lvl in range(5):
             g = geom[lvl]
             p, x = getattr(self, f"enc{lvl + 1}_down")(p, x, g.get("down"),
-                                                        g.get("down_pr"))
+                                                        g.get("down_pr"), train)
             if self.blocks[lvl] > 1:
                 for blk in getattr(self, f"enc{lvl + 1}_blocks"):
-                    x = blk(p, x, g["self"], g["p_r"])
+                    x = block(blk, p, x, g)
             skips.append((p, x))
         p5, x5 = skips[4]
-        x = self.dec5_block1(p5, self.dec5_up(p5, x5), geom[4]["self"], geom[4]["p_r"])
+        x = block(self.dec5_block1, p5, self.dec5_up(p5, x5, train=train), geom[4])
         for lvl in range(3, -1, -1):
             p_f, x_f = skips[lvl]
             x = getattr(self, f"dec{lvl + 1}_up")(p_f, x_f, skips[lvl + 1][0], x,
-                                                  up=geom[lvl]["up"])
-            x = getattr(self, f"dec{lvl + 1}_block1")(p_f, x, geom[lvl]["self"],
-                                                      geom[lvl]["p_r"])
+                                                  up=geom[lvl]["up"], train=train)
+            x = block(getattr(self, f"dec{lvl + 1}_block1"), p_f, x, geom[lvl])
         return x
 
 
@@ -285,17 +375,19 @@ class PointTransformerSeg(nn.Module):
         self.confi1_w = nn.Parameter(torch.empty(k, c0))
         self.confi1_b = nn.Parameter(torch.zeros(k))
 
-    def forward(self, p, feat, geom):
-        h = self.unet(p, torch.cat([p, feat], dim=-1), geom)
+    def forward(self, p, feat, geom, train: bool = False):
+        h = self.unet(p, torch.cat([p, feat], dim=-1), geom, train)
         B, N, c0 = h.shape
         if self.mode == "magnitude":
-            return self.final1(torch.relu(self.final_bn(self.final0(h))))
-        logits = self.cls1(torch.relu(self.cls_bn(self.cls0(h))))
-        # the kernel reads bf16 rows (the TPU kernel casts h to bf16 itself)
+            return self.final1(torch.relu(self.final_bn(self.final0(h), train)))
+        logits = self.cls1(torch.relu(self.cls_bn(self.cls0(h), train)))
+        # the kernel reads bf16 rows (the TPU kernel casts h to bf16 itself);
+        # training takes the plain version (JAX: `not train`, `:475`)
         hk = h.reshape(B * N, c0)
-        per_part = grouped_head(hk if self.dtype is None else hk.to(self.dtype),
-                                self.confi0_kernel, self.confi0_bias, self.confi1_w,
-                                self.confi1_b).reshape(B, N, -1)
+        head = grouped_head_torch if train else grouped_head
+        per_part = head(hk if self.dtype is None else hk.to(self.dtype),
+                        self.confi0_kernel, self.confi0_bias, self.confi1_w,
+                        self.confi1_b).reshape(B, N, -1)
         # softmax of bf16 logits is bf16 in JAX; the product promotes to f32
         parts = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
         confidence = (per_part * parts).sum(-1, keepdim=True)

@@ -13,12 +13,13 @@ core (or the anchor attention on the chunked route), the vector attention
 and the grouped confidence head.
 
 `run_batch` is the serving step on a batch of point clouds, `run_scan` the
-single-scan entry point (`cli/infer.py`).  Still missing, because the files
-they read are not in the repository: loading an SMPL .pkl
-(`body/smpl.py::load_smpl`, the pkls belong under `datafolder/body_models/`)
-and restoring a trained checkpoint (`train/checkpoint.py`, orbax).  Until
-then the pipeline runs with `synthetic_body_model` and random weights, or
-weights converted from a flax tree (`state_dict=`), as `bench.py` does.
+single-scan entry point (`cli/infer.py`).  The weights come from a
+checkpoint of the port's own format (`checkpoint_path`: a file or directory
+written by `train/checkpoint.py`'s `save_params` or `save_train_state`, or
+converted from an orbax one by `tools/orbax_to_torch.py`), from a state_dict
+(`state_dict=`, e.g. `convert.flax_to_state_dict`), or at random.  The body
+model is the SMPL pkl under `datafolder/body_models/` (`load_smpl`), or,
+where the caller allows it, `synthetic_body_model`.
 """
 
 from __future__ import annotations
@@ -30,12 +31,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from etch_tpu_torch.body.smpl import SMPLModel, marker_submodel, smpl_forward, synthetic_body_model
+from etch_tpu_torch.body.smpl import (SMPLModel, load_smpl, marker_submodel, smpl_forward,
+                                      synthetic_body_model)
 from etch_tpu_torch.data.mesh import TriMesh, load_obj, save_obj
 from etch_tpu_torch.data.sampling import sample_surface
 from etch_tpu_torch.fit.markers import extract_markers
 from etch_tpu_torch.fit.smpl_fit import fit_smpl_params
 from etch_tpu_torch.models.etch_net import EtchNet, init_params
+from etch_tpu_torch.train.checkpoint import restore_params, tree_signature
 from etch_tpu_torch.utils.config import EtchConfig
 
 GENDER_MODEL_PATHS = {
@@ -173,14 +176,13 @@ def load_body_model(gender: str = "neutral", root: str = ".",
                     allow_synthetic: bool = False) -> SMPLModel:
     path = os.path.join(root, GENDER_MODEL_PATHS[gender])
     if os.path.isfile(path):
-        raise NotImplementedError(
-            f"{path}: loading an SMPL .pkl (body/smpl.py::load_smpl) is not ported yet")
+        return load_smpl(path)
     if allow_synthetic:
         return synthetic_body_model(n_verts=6890)
-    raise NotImplementedError(
-        f"no SMPL body model at {path}, and loading one is not ported yet: the "
-        f"repository holds no SMPL pkl; pass allow_synthetic_body=True to run with a "
-        f"synthetic body (results meaningless)")
+    raise FileNotFoundError(
+        f"SMPL body model not found at {path}; download the SMPL release pkls "
+        f"into datafolder/body_models/ (same layout as the reference) or pass "
+        f"allow_synthetic=True for smoke testing.")
 
 
 def build_pipeline(cfg: EtchConfig, markerset: Dict[str, int],
@@ -190,19 +192,19 @@ def build_pipeline(cfg: EtchConfig, markerset: Dict[str, int],
                    state_dict: Optional[Dict[str, torch.Tensor]] = None,
                    device="cuda") -> InferencePipeline:
     """Construct the pipeline on `device` (the card unless the caller asks
-    for the CPU).  `state_dict` (e.g. from `convert.flax_to_state_dict`)
-    supplies the weights; without it they are drawn from a `torch.Generator`
-    seeded with `rng_seed`."""
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            f"{checkpoint_path}: restoring a checkpoint (train/checkpoint.py, orbax) is "
-            f"not ported yet; the repository holds no trained checkpoint.  Convert flax "
-            f"weights with convert.flax_to_state_dict and pass state_dict= instead")
+    for the CPU).  The weights: `checkpoint_path` (a file or directory of
+    `train/checkpoint.py`, its tree signature checked against the model's),
+    else `state_dict` (e.g. from `convert.flax_to_state_dict`), else drawn
+    from a `torch.Generator` seeded with `rng_seed`."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"build_pipeline(device={str(device)!r}): torch sees no CUDA "
                            f"device (pass device=\"cpu\" to run on the CPU)")
     model = EtchNet(cfg)
+    if checkpoint_path is not None:
+        with torch.device("meta"):
+            want = tree_signature(EtchNet(cfg).state_dict())
+        state_dict = restore_params(checkpoint_path, expected_signature=want)
     if state_dict is None:
         init_params(model, torch.Generator().manual_seed(rng_seed))
     else:

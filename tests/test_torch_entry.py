@@ -226,8 +226,11 @@ def test_cli_infer_refuses_a_missing_card(tmp_path):
 
 
 def test_unported_inputs_raise():
+    """Checkpoints and SMPL pkls are read since the training slice
+    (tests/test_torch_checkpoint.py); missing files raise."""
     cfg = EtchConfig.tiny(**CFG_KW)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        build_pipeline(cfg, {"M0": 0}, checkpoint_path="ckpt", allow_synthetic_body=True)
-    with pytest.raises(NotImplementedError, match="SMPL"):
+    with pytest.raises(FileNotFoundError):
+        build_pipeline(cfg, {"M0": 0}, checkpoint_path="ckpt", allow_synthetic_body=True,
+                       device="cpu")
+    with pytest.raises(FileNotFoundError, match="SMPL"):
         port_pipeline.load_body_model("female", root=REPO)

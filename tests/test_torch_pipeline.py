@@ -119,7 +119,9 @@ def test_fit_from_identical_markers():
 
 def test_port_imports_no_jax():
     code = ("import sys, etch_tpu_torch.pipeline, etch_tpu_torch.convert, "
-            "etch_tpu_torch.cli.infer, etch_tpu_torch.nn.attention; "
+            "etch_tpu_torch.cli.infer, etch_tpu_torch.nn.attention, "
+            "etch_tpu_torch.train.state, etch_tpu_torch.train.checkpoint, "
+            "etch_tpu_torch.data.dataset, etch_tpu_torch.cli.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'etch_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
