@@ -19,7 +19,9 @@ built at first use).  Phases, each of which raises on failure:
      E = 512 and at E = 1024 with one head, the attention at heads of 256
      and 512, the grouped head at c0 = 256, wider contraction rows, the bf16
      contraction at 66 kernel points, at 12 channels and at 262 neighbours,
-     the vector attention at c = 1024; ball query's bound counts the pairs
+     the vector attention at c = 1024; then the f32 path's FPS, kNN, ball
+     query, occupancy conv and contraction shapes again at B=1, where
+     `cli/infer` and `cli/evaluate` launch them; ball query's bound counts the pairs
      its index-order scan must visit for these inputs, `bound_mn_ms` all
      M x N; the C == 1 body's counts its expanded-form weights,
      `bound_direct_ms` the direct form's):
@@ -87,7 +89,18 @@ built at first use).  Phases, each of which raises on failure:
      (its `main`) on the repository's 4D-DRESS sample, two epochs at B=1,
      then its last checkpoint through `build_pipeline(checkpoint_path=...)`:
      the same forward as the trained model, and `run_scan` writes its files;
-     the proximity backend of the ground truth is printed.
+     the proximity backend of the ground truth is printed;
+  8. evaluation (`evaluate_phase`): `python -m etch_tpu_torch.cli.evaluate`
+     (its `main`) on the 4D-DRESS sample, `EtchConfig()`, N=5000, B=1, f32,
+     with phase 7 (e)'s checkpoint, the synthetic body and `--save_debug`,
+     in a temporary working directory: exactly the f32 kernel set launched,
+     each at a shape phase 3 timed (its B=1 pass); `v2v_score.txt` holds the
+     sample's line and the average block, and its V2V equals the float64 one
+     recomputed from the exported OBJ and the GT mesh (within the OBJ's
+     rounding, 1e-8 m); the npz schemas; each debug PLY reads back with N
+     points; `cli.compute_mpjpe` on the outputs prints a finite MPJPE; the
+     seconds of the scan (dataset load, pipeline build, forward, fit,
+     export) are printed.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on a path and per request, its headline shape's times, bound and
@@ -416,80 +429,6 @@ def compare_kernels(torch, dev):
             prev["max_abs_err"] = max(prev["max_abs_err"], err)
             prev["shapes"].append(entry)
 
-    xyz = torch.from_numpy(capsule_clouds(B, N, seed=1)).to(dev)
-
-    # FPS launches of a request: the EPN's 5000->2500 and the U-Net
-    # geometry's 5000->1250->312->78->19 (nn/point_transformer.py)
-    clouds = {N: xyz}
-    for n, m in ((N, 2500), (N, 1250), (1250, 312), (312, 78), (78, 19)):
-        src = clouds[n]
-        out = fp.fps_cuda(src, m)
-        ref = fp.fps_torch(src, m)
-        if not torch.equal(out, ref):
-            raise AssertionError(f"fps {n}->{m}: kernel and plain indices differ")
-        record("fps", f"B={B} {n}->{m}", 0.0,
-               lambda: fp.fps_cuda(src, m), 5,
-               cuda_ms(torch, lambda: fp.fps_torch(src, m), 1),
-               bound(B * n * 12 + B * m * 4, 0.0, 10.0 * B * m * n))
-        clouds[m] = gather_points(src, out).contiguous()
-    # repaired: a cloud past the register instance (the device-memory one)
-    big = torch.from_numpy(capsule_clouds(B, 20000, seed=2)).to(dev)
-    out = fp.fps_cuda(big, 2000)
-    if not torch.equal(out, fp.fps_torch(big, 2000)):
-        raise AssertionError("fps 20000->2000: kernel and plain indices differ")
-    record("fps", f"B={B} 20000->2000", 0.0, lambda: fp.fps_cuda(big, 2000), 3,
-           cuda_ms(torch, lambda: fp.fps_torch(big, 2000), 1),
-           bound(B * 20000 * 12 + B * 2000 * 4, 0.0, 10.0 * B * 2000 * 20000))
-    del big
-
-    # kNN shapes of a request (k, queries, supports): each U-Net level's self
-    # neighbours, the down neighbours of levels 1-4 and the up 3-NN of
-    # levels 0-3 (5000x1250 k=3 also propagates the EPN's features)
-    lv = (N, 1250, 312, 78, 19)
-    knn_shapes = [(8, N, N), (16, 1250, N), (3, N, 1250)]
-    knn_shapes += [(16, lv[l], lv[l]) for l in range(1, 5)]
-    knn_shapes += [(16, lv[l], lv[l - 1]) for l in range(2, 5)]
-    knn_shapes += [(3, lv[l], lv[l + 1]) for l in range(1, 4)]
-    knn_shapes.append((48, 1250, N))   # repaired: k above 32 (passes of 32)
-    for k, Q, S in knn_shapes:
-        q, s = clouds[Q], clouds[S]
-        label = f"k={k} {Q}x{S}"
-        idx, d2 = kn.knn_cuda(q, s, k)
-        ridx, rd2 = kn.knn_torch(q, s, k)
-        if not torch.equal(idx, ridx):
-            raise AssertionError(f"knn {label}: kernel and plain indices differ")
-        err = (d2 - rd2).abs().max().item()
-        if err != 0.0:
-            raise AssertionError(f"knn {label}: squared distances differ by {err}")
-        record("knn", f"B={B} {label}", err,
-               lambda: kn.knn_cuda(q, s, k), 5,
-               cuda_ms(torch, lambda: kn.knn_torch(q, s, k), 2),
-               bound(B * (Q + S) * 12 + B * Q * k * 8, 0.0, 8.0 * B * Q * S))
-
-    # ball query of each EPN conv: its centers among its input points
-    # (conv0 samples 2500 by FPS, conv2 the first 1250 lazily)
-    plan = backbone_plan(EtchConfig(num_point=N, batch_size=B))
-    specs = (plan[0][0], plan[0][1], plan[1][0], plan[1][1])
-    q2500 = clouds[2500]
-    epn_pts = {N: xyz, 2500: q2500, 1250: q2500[:, :1250].contiguous()}
-    nbrs = []
-    for i, spec in enumerate(specs):
-        q, s = epn_pts[spec["n_out"]], epn_pts[spec["n_in"]]
-        r, ns = spec["radius"], spec["n_neighbor"]
-        nbr = bq.ball_query_cuda(q, s, r, ns)
-        ref = bq.ball_query_torch(q, s, r, ns)
-        if not torch.equal(nbr, ref):
-            raise AssertionError(f"ball_query conv{i}: kernel and plain indices differ")
-        Q, S = q.shape[1], s.shape[1]
-        pairs = ball_query_pairs(torch, kn, q, s, r, ns, ref)
-        record("ball_query", f"B={B} {Q}x{S} r={r:.3f} ns={ns}", 0.0,
-               lambda: bq.ball_query_cuda(q, s, r, ns), 5,
-               cuda_ms(torch, lambda: bq.ball_query_torch(q, s, r, ns), 2),
-               bound(B * (Q + S) * 12 + B * Q * ns * 4, 0.0, 8.0 * pairs),
-               extra={"bound_mn_ms": bound(0.0, 0.0, 8.0 * B * Q * S)[0],
-                      "pairs_visited_share": pairs / (B * Q * S)})
-        nbrs.append(nbr)
-
     anchors = get_anchors(60)
 
     def rk_of(spec):
@@ -526,41 +465,125 @@ def compare_kernels(torch, dev):
         library_ms = None if library_fn is None else cuda_ms(torch, library_fn, 5)
         record(kernel, label, worst, fn, 5, cuda_ms(torch, plain_fn, 1), bnd, library_ms, extra)
 
-    # occupancy conv of conv0: the 512-center chunks of the 2500 FPS centers
-    # and the ragged last one
-    conv0 = specs[0]
-    rk, sg, ns = rk_of(conv0), conv0["sigma"], conv0["n_neighbor"]
-    for c in chunks(conv0["n_out"]):
-        ctr, nbr = q2500[:, :c].contiguous(), nbrs[0][:, :c].contiguous()
-        check("interconv_ones", f"B={B} P={N} c={c} nn={ns}",
-              interconv.interconv_ones_cuda(xyz, ctr, nbr, rk, sg, 60),
-              interconv.interconv_ones_torch(xyz, ctr, nbr, rk, sg, 60),
-              lambda: interconv.interconv_ones_cuda(xyz, ctr, nbr, rk, sg, 60),
-              lambda: interconv.interconv_ones_torch(xyz, ctr, nbr, rk, sg, 60),
-              bound(B * N * 12 + B * c * 12 + B * c * ns * 4 + 1440 * 12 + B * c * 1440 * 4,
-                    0.0, (EXPANDED_WEIGHT_FLOP * 1440 + NEIGHBOUR_FLOP) * B * c * ns))
-
-    # contraction on f32 rows: conv1 (C=32, centers of 2500), conv2 (C=32,
-    # the first 1250 of 2500: lazy sampling) and conv3 (C=64, 1250), each in
-    # 512-center chunks and a ragged last one
     gen = torch.Generator(device=dev).manual_seed(0)
-    for spec in specs[1:]:
-        C, pts, nn = spec["dim_in"], epn_pts[spec["n_in"]], spec["n_neighbor"]
-        P = pts.shape[1]
-        feats = torch.randn((B, P, 60 * C), device=dev, generator=gen)
-        nbr_all = bq.ball_query_cuda(epn_pts[spec["n_out"]], pts, spec["radius"], nn)
-        rk, sg = rk_of(spec), spec["sigma"]
-        for c in chunks(spec["n_out"]):
-            ctr = pts[:, :c].contiguous()          # lazy sampling: the first points
-            nbr = nbr_all[:, :c].contiguous()
-            check("interconv_t", f"B={B} P={P} c={c} of {spec['n_out']} nn={nn} C={C}",
-                  interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
-                  interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
-                  lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
-                  lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
-                  interconv_bound(B, P, c, nn, 60, 24, C, 4))
-        del feats
-    torch.cuda.empty_cache()
+
+    def f32_path_shapes(b, xyz):
+        """The f32 path's launches of a request of b clouds of N points:
+        FPS, kNN, ball query, the occupancy conv and the contraction.
+        Returns (clouds by size, the EPN's points, its conv specs, ball
+        query's indices of each conv)."""
+        # FPS launches of a request: the EPN's 5000->2500 and the U-Net
+        # geometry's 5000->1250->312->78->19 (nn/point_transformer.py)
+        clouds = {N: xyz}
+        for n, m in ((N, 2500), (N, 1250), (1250, 312), (312, 78), (78, 19)):
+            src = clouds[n]
+            out = fp.fps_cuda(src, m)
+            ref = fp.fps_torch(src, m)
+            if not torch.equal(out, ref):
+                raise AssertionError(f"fps {n}->{m}: kernel and plain indices differ")
+            record("fps", f"B={b} {n}->{m}", 0.0,
+                   lambda: fp.fps_cuda(src, m), 5,
+                   cuda_ms(torch, lambda: fp.fps_torch(src, m), 1),
+                   bound(b * n * 12 + b * m * 4, 0.0, 10.0 * b * m * n))
+            clouds[m] = gather_points(src, out).contiguous()
+
+        # kNN shapes of a request (k, queries, supports): each U-Net level's
+        # self neighbours, the down neighbours of levels 1-4 and the up 3-NN
+        # of levels 0-3 (5000x1250 k=3 also propagates the EPN's features)
+        lv = (N, 1250, 312, 78, 19)
+        knn_shapes = [(8, N, N), (16, 1250, N), (3, N, 1250)]
+        knn_shapes += [(16, lv[l], lv[l]) for l in range(1, 5)]
+        knn_shapes += [(16, lv[l], lv[l - 1]) for l in range(2, 5)]
+        knn_shapes += [(3, lv[l], lv[l + 1]) for l in range(1, 4)]
+        if b == B:
+            knn_shapes.append((48, 1250, N))   # repaired: k above 32 (passes of 32)
+        for k, Q, S in knn_shapes:
+            q, s = clouds[Q], clouds[S]
+            label = f"k={k} {Q}x{S}"
+            idx, d2 = kn.knn_cuda(q, s, k)
+            ridx, rd2 = kn.knn_torch(q, s, k)
+            if not torch.equal(idx, ridx):
+                raise AssertionError(f"knn {label}: kernel and plain indices differ")
+            err = (d2 - rd2).abs().max().item()
+            if err != 0.0:
+                raise AssertionError(f"knn {label}: squared distances differ by {err}")
+            record("knn", f"B={b} {label}", err,
+                   lambda: kn.knn_cuda(q, s, k), 5,
+                   cuda_ms(torch, lambda: kn.knn_torch(q, s, k), 2),
+                   bound(b * (Q + S) * 12 + b * Q * k * 8, 0.0, 8.0 * b * Q * S))
+
+        # ball query of each EPN conv: its centers among its input points
+        # (conv0 samples 2500 by FPS, conv2 the first 1250 lazily)
+        plan = backbone_plan(EtchConfig(num_point=N, batch_size=b))
+        specs = (plan[0][0], plan[0][1], plan[1][0], plan[1][1])
+        q2500 = clouds[2500]
+        epn_pts = {N: xyz, 2500: q2500, 1250: q2500[:, :1250].contiguous()}
+        nbrs = []
+        for i, spec in enumerate(specs):
+            q, s = epn_pts[spec["n_out"]], epn_pts[spec["n_in"]]
+            r, ns = spec["radius"], spec["n_neighbor"]
+            nbr = bq.ball_query_cuda(q, s, r, ns)
+            ref = bq.ball_query_torch(q, s, r, ns)
+            if not torch.equal(nbr, ref):
+                raise AssertionError(f"ball_query conv{i}: kernel and plain indices differ")
+            Q, S = q.shape[1], s.shape[1]
+            pairs = ball_query_pairs(torch, kn, q, s, r, ns, ref)
+            record("ball_query", f"B={b} {Q}x{S} r={r:.3f} ns={ns}", 0.0,
+                   lambda: bq.ball_query_cuda(q, s, r, ns), 5,
+                   cuda_ms(torch, lambda: bq.ball_query_torch(q, s, r, ns), 2),
+                   bound(b * (Q + S) * 12 + b * Q * ns * 4, 0.0, 8.0 * pairs),
+                   extra={"bound_mn_ms": bound(0.0, 0.0, 8.0 * b * Q * S)[0],
+                          "pairs_visited_share": pairs / (b * Q * S)})
+            nbrs.append(nbr)
+
+        # occupancy conv of conv0: the 512-center chunks of the 2500 FPS
+        # centers and the ragged last one
+        conv0 = specs[0]
+        rk, sg, ns = rk_of(conv0), conv0["sigma"], conv0["n_neighbor"]
+        for c in chunks(conv0["n_out"]):
+            ctr, nbr = q2500[:, :c].contiguous(), nbrs[0][:, :c].contiguous()
+            check("interconv_ones", f"B={b} P={N} c={c} nn={ns}",
+                  interconv.interconv_ones_cuda(xyz, ctr, nbr, rk, sg, 60),
+                  interconv.interconv_ones_torch(xyz, ctr, nbr, rk, sg, 60),
+                  lambda: interconv.interconv_ones_cuda(xyz, ctr, nbr, rk, sg, 60),
+                  lambda: interconv.interconv_ones_torch(xyz, ctr, nbr, rk, sg, 60),
+                  bound(b * N * 12 + b * c * 12 + b * c * ns * 4 + 1440 * 12 + b * c * 1440 * 4,
+                        0.0, (EXPANDED_WEIGHT_FLOP * 1440 + NEIGHBOUR_FLOP) * b * c * ns))
+
+        # contraction on f32 rows: conv1 (C=32, centers of 2500), conv2
+        # (C=32, the first 1250 of 2500: lazy sampling) and conv3 (C=64,
+        # 1250), each in 512-center chunks and a ragged last one
+        for spec in specs[1:]:
+            C, pts, nn = spec["dim_in"], epn_pts[spec["n_in"]], spec["n_neighbor"]
+            P = pts.shape[1]
+            feats = torch.randn((b, P, 60 * C), device=dev, generator=gen)
+            nbr_all = bq.ball_query_cuda(epn_pts[spec["n_out"]], pts, spec["radius"], nn)
+            rk, sg = rk_of(spec), spec["sigma"]
+            for c in chunks(spec["n_out"]):
+                ctr = pts[:, :c].contiguous()          # lazy sampling: the first points
+                nbr = nbr_all[:, :c].contiguous()
+                check("interconv_t", f"B={b} P={P} c={c} of {spec['n_out']} nn={nn} C={C}",
+                      interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
+                      interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
+                      lambda: interconv.interconv_t_cuda(pts, ctr, nbr, feats, rk, sg, 60),
+                      lambda: interconv.interconv_t_torch(pts, ctr, nbr, feats, rk, sg, 60),
+                      interconv_bound(b, P, c, nn, 60, 24, C, 4))
+            del feats
+        torch.cuda.empty_cache()
+        return clouds, epn_pts, specs, nbrs
+
+    xyz = torch.from_numpy(capsule_clouds(B, N, seed=1)).to(dev)
+    clouds, epn_pts, specs, nbrs = f32_path_shapes(B, xyz)
+    q2500 = clouds[2500]
+    # repaired: a cloud past the register instance (the device-memory one)
+    big = torch.from_numpy(capsule_clouds(B, 20000, seed=2)).to(dev)
+    out = fp.fps_cuda(big, 2000)
+    if not torch.equal(out, fp.fps_torch(big, 2000)):
+        raise AssertionError("fps 20000->2000: kernel and plain indices differ")
+    record("fps", f"B={B} 20000->2000", 0.0, lambda: fp.fps_cuda(big, 2000), 3,
+           cuda_ms(torch, lambda: fp.fps_torch(big, 2000), 1),
+           bound(B * 20000 * 12 + B * 2000 * 4, 0.0, 10.0 * B * 2000 * 20000))
+    del big
     for spec in wide_specs(N):   # repaired: the 128- and 256-channel blocks
         C, nn, c = spec["dim_in"], spec["n_neighbor"], min(512, spec["n_out"])
         pts = wide_points(torch, dev, spec)
@@ -605,6 +628,8 @@ def compare_kernels(torch, dev):
     compare_bf16_kernels(torch, dev, xyz, clouds, epn_pts, specs, nbrs[0], rk_of, check_bf16,
                          c1_bound)
     torch.cuda.empty_cache()
+    # the f32 path's shapes at B=1: the requests of cli/infer and cli/evaluate
+    f32_path_shapes(1, xyz[:1].contiguous())
     return results
 
 
@@ -1471,10 +1496,11 @@ def nan_guard_on_card(torch):
           "on a NaN batch, BatchNorm statistics advanced; a clean batch moved all four")
 
 
-def train_cli(torch):
+def train_cli(torch, tmp):
     """Phase 7 (e): `cli.train` on the repository's 4D-DRESS sample (two
-    epochs, B=1, N=5000, f32), then its last checkpoint served: the same
-    forward as the trained model, and run_scan's files."""
+    epochs, B=1, N=5000, f32) into `tmp`, then its last checkpoint served:
+    the same forward as the trained model, and run_scan's files.  Returns
+    the checkpoint directory."""
     from etch_tpu_torch.cli import train
     from etch_tpu_torch.data import proximity
     from etch_tpu_torch.pipeline import build_pipeline, load_markerset
@@ -1482,53 +1508,149 @@ def train_cli(torch):
 
     root = os.path.dirname(os.path.abspath(__file__))
     scan_dir, smpl_dir, info_dir, ids = (os.path.join(root, p) for p in SAMPLE)
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        out, state = train.main([
-            "--epochs", "2", "--batch_size", "1", "--num_workers", "0", "--device", "cuda",
-            "--output_folder", os.path.join(tmp, "exp"), "--scan_dir", scan_dir,
-            "--smpl_dir", smpl_dir, "--infopoints_dir", info_dir, "--activated_ids_path", ids,
-            "--markerset_path", os.path.join(root, MARKERSET_PATH)])
-        cli_s = time.perf_counter() - t0
-        ckpts = sorted(os.listdir(os.path.join(out, "checkpoints")))
-        if ckpts != ["0.pt", "1.pt"]:
-            raise AssertionError(f"cli/train wrote checkpoints {ckpts}")
-        with open(os.path.join(out, "log_all", "metrics.jsonl")) as fh:
-            rows = [json.loads(line) for line in fh]
-        pipe = build_pipeline(EtchConfig(epochs=2), load_markerset(os.path.join(root, MARKERSET_PATH)),
-                              checkpoint_path=os.path.join(out, "checkpoints"),
-                              allow_synthetic_body=True, device="cuda")
-        pts = torch.from_numpy(capsule_clouds(1, N, seed=9)).cuda()
-        with torch.no_grad():
-            a, b = pipe.model(pts), state.model(pts)
-        diff = max((a[k] - b[k]).abs().max().item() / (1 + b[k].abs().max().item()) for k in a)
-        if not diff <= 1e-6:
-            raise AssertionError(f"served checkpoint: forward differs from the trained model's by {diff}")
-        scan = os.path.join(root, SCAN)
-        result = pipe.run_scan(scan, seed=0)
-        obj, npz = pipe.export(result, scan, os.path.join(tmp, "served"))
-        if not (os.path.isfile(obj) and np.isfinite(np.load(npz)["joints"]).all()):
-            raise AssertionError(f"served checkpoint: run_scan wrote {obj}, {npz}")
+    t0 = time.perf_counter()
+    out, state = train.main([
+        "--epochs", "2", "--batch_size", "1", "--num_workers", "0", "--device", "cuda",
+        "--output_folder", os.path.join(tmp, "exp"), "--scan_dir", scan_dir,
+        "--smpl_dir", smpl_dir, "--infopoints_dir", info_dir, "--activated_ids_path", ids,
+        "--markerset_path", os.path.join(root, MARKERSET_PATH)])
+    cli_s = time.perf_counter() - t0
+    ckpts = sorted(os.listdir(os.path.join(out, "checkpoints")))
+    if ckpts != ["0.pt", "1.pt"]:
+        raise AssertionError(f"cli/train wrote checkpoints {ckpts}")
+    with open(os.path.join(out, "log_all", "metrics.jsonl")) as fh:
+        rows = [json.loads(line) for line in fh]
+    pipe = build_pipeline(EtchConfig(epochs=2), load_markerset(os.path.join(root, MARKERSET_PATH)),
+                          checkpoint_path=os.path.join(out, "checkpoints"),
+                          allow_synthetic_body=True, device="cuda")
+    pts = torch.from_numpy(capsule_clouds(1, N, seed=9)).cuda()
+    with torch.no_grad():
+        a, b = pipe.model(pts), state.model(pts)
+    diff = max((a[k] - b[k]).abs().max().item() / (1 + b[k].abs().max().item()) for k in a)
+    if not diff <= 1e-6:
+        raise AssertionError(f"served checkpoint: forward differs from the trained model's by {diff}")
+    scan = os.path.join(root, SCAN)
+    result = pipe.run_scan(scan, seed=0)
+    obj, npz = pipe.export(result, scan, os.path.join(tmp, "served"))
+    if not (os.path.isfile(obj) and np.isfinite(np.load(npz)["joints"]).all()):
+        raise AssertionError(f"served checkpoint: run_scan wrote {obj}, {npz}")
     print(f"cli/train (2 epochs, B=1, N={N}, f32, the bundled sample): {cli_s:.1f} s; epoch "
           f"losses {[round(r['all_loss'], 5) for r in rows]}; epoch seconds "
           f"{[round(r['epoch_time_s'], 2) for r in rows]}; ground truth's proximity backend: "
           f"{proximity.last_backend}; the last checkpoint served through build_pipeline: "
           f"forward {diff:.3g} from the trained model's, run_scan wrote {os.path.basename(obj)} and "
           f"{os.path.basename(npz)}")
+    return os.path.join(out, "checkpoints")
 
 
-def train_phase(torch, _build, kernels):
+def train_phase(torch, _build, timed, tmp):
     """Phase 7; returns ({kernel: launches a full-width train step},
-    {kernel: its Function's backward ms})."""
+    {kernel: its Function's backward ms}, the checkpoint directory that
+    cli.train wrote under `tmp`)."""
     print("training:")
     backward_ms = function_checks(torch, torch.device("cuda", 0))
     train_step_card_vs_cpu(torch)
-    timed = {k: {e["key"] for e in v["shapes"]} for k, v in kernels.items()}
     per_step = full_width_train(torch, _build, timed)
     bf16_train_step(torch, _build)
     nan_guard_on_card(torch)
-    train_cli(torch)
-    return per_step, backward_ms
+    ckpt = train_cli(torch, tmp)
+    return per_step, backward_ms, ckpt
+
+
+def evaluate_phase(torch, _build, timed, ckpt, tmp):
+    """Phase 8: `python -m etch_tpu_torch.cli.evaluate` (its `main`) on the
+    repository's 4D-DRESS sample at EtchConfig(), N=5000, B=1, f32, with the
+    checkpoint of phase 7 (e), the synthetic body and the debug exports, in
+    a working directory under `tmp`; then `cli.compute_mpjpe` on its
+    outputs against the sample's GT joints."""
+    import contextlib
+    import io
+    import pickle
+
+    from etch_tpu_torch.cli import compute_mpjpe, evaluate
+    from etch_tpu_torch.data.mesh import load_obj, load_ply
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    scan_dir, smpl_dir, info_dir, _ = (os.path.join(root, p) for p in SAMPLE)
+    sample = os.path.splitext(os.path.basename(SCAN))[0]
+    work = os.path.join(tmp, "eval")
+    os.makedirs(work)
+    ids = os.path.join(work, "ids.pkl")
+    with open(ids, "wb") as fh:
+        pickle.dump([sample], fh)
+    cwd = os.getcwd()
+    os.chdir(work)   # evaluate writes under all_experiments/ in the working directory
+    try:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = evaluate.main([
+            "--num_point", str(N), "--batch_size", "1", "--num_workers", "0", "--i", "smoke",
+            "--markerset_path", os.path.join(root, MARKERSET_PATH), "--activated_ids_path", ids,
+            "--scan_dir", scan_dir, "--smpl_dir", smpl_dir, "--infopoints_dir", info_dir,
+            "--model_path", ckpt, "--allow_synthetic_body", "--save_debug", "--device", "cuda"])
+        eval_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    launches = dict(_build.launches)
+    shapes = {k: dict(v) for k, v in _build.shape_launches.items()}
+    ran = {k for k, v in launches.items() if v}
+    if ran != set(PATH_KERNELS["f32"]):
+        raise AssertionError(f"cli/evaluate: kernels launched {sorted(ran)}, expected "
+                             f"{sorted(PATH_KERNELS['f32'])}")
+    untimed = {k: sorted(set(v) - timed[k]) for k, v in shapes.items() if set(v) - timed[k]}
+    if untimed:
+        raise AssertionError(f"cli/evaluate: launches at shapes phase 3 did not time: {untimed}")
+
+    out = os.path.join(work, res["output_folder"])
+    d = os.path.join(out, sample)
+    with open(os.path.join(out, "v2v_score.txt")) as fh:
+        lines = fh.read().splitlines()
+    if len(lines) != 5 or not lines[0].startswith(f"{sample}: ") or lines[1] != "==========" \
+            or lines[4] != "sample num: 1":
+        raise AssertionError(f"cli/evaluate: v2v_score.txt reads {lines}")
+    v2v = float(lines[0].split(": ")[1].split()[0])
+    if lines[2] != f"average v2v: {v2v}" or lines[3] != f"total v2v: {v2v}":
+        raise AssertionError(f"cli/evaluate: v2v_score.txt reads {lines}")
+    # V2V recomputed in float64 from the exported OBJ (8 decimals: each
+    # vertex within sqrt(3) * 5e-9 m of the f32 one) and the GT mesh
+    verts = load_obj(os.path.join(d, f"forwarded_smpl_mesh_on_pred_{sample}.obj")).vertices
+    gt = load_obj(os.path.join(smpl_dir, sample, f"mesh_smpl_{sample}.obj")).vertices
+    again = float(np.mean(np.linalg.norm(gt - verts, axis=1)))
+    if verts.shape != (6890, 3) or not abs(again - v2v) <= 1e-8:
+        raise AssertionError(f"cli/evaluate: V2V {v2v} written, {again} from the exported mesh")
+    info = np.load(os.path.join(d, f"output_smpl_info_{sample}.npz"))
+    got = {k: info[k].shape for k in info.files}
+    if got != NPZ_SHAPES or not all(np.isfinite(info[k]).all() for k in info.files):
+        raise AssertionError(f"cli/evaluate: output_smpl_info npz {got}")
+    dbg = np.load(os.path.join(d, f"tightness_vectors_info_{sample}.npz"))
+    want = {"hitpts": (N, 3), "pred_vectors": (N, 3), "pred_part_labels": (N,),
+            "pred_confidences": (N, 1), "gt_vectors": (N, 3), "gt_labels": (N,),
+            "gt_confidences": (N, 1)}
+    got = {k: dbg[k].shape for k in dbg.files}
+    if got != want:
+        raise AssertionError(f"cli/evaluate: tightness_vectors_info npz {got}")
+    plys = sorted(f for f in os.listdir(d) if f.endswith(".ply"))
+    if len(plys) != 5:
+        raise AssertionError(f"cli/evaluate: debug PLYs {plys}")
+    for f in plys:
+        pts = load_ply(os.path.join(d, f))
+        if pts.shape != (N, 3) or not np.isfinite(pts).all():
+            raise AssertionError(f"cli/evaluate: {f} reads back {pts.shape}")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        compute_mpjpe.main(["--pred_dir", out, "--gt_dir", smpl_dir])
+    mpjpe = [float(line.split()[-1]) for line in text.getvalue().splitlines()
+             if line.startswith("mean MPJPE:")]
+    if len(mpjpe) != 1 or not np.isfinite(mpjpe[0]):
+        raise AssertionError(f"cli/compute_mpjpe printed {text.getvalue()!r}")
+    sec = res["seconds"]
+    print(f"cli/evaluate (B=1, N={N}, f32, the phase 7 checkpoint, synthetic body, debug "
+          f"exports): {eval_s:.2f} s for the scan, first call in the process (dataset load "
+          f"{sec['load']:.2f} s, pipeline build {sec['build']:.2f} s, forward "
+          f"{sec['forward']:.2f} s, fit {sec['fit']:.2f} s, export {sec['export']:.2f} s); V2V {v2v:.6f} m, equal to the exported mesh's within "
+          f"{abs(again - v2v):.2g} m; {len(plys)} debug PLYs of {N} points read back; MPJPE "
+          f"{mpjpe[0]:.6f} m (cli/compute_mpjpe); launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}, each at a shape phase 3 timed")
 
 
 def main():
@@ -1598,10 +1720,17 @@ def main():
     # 6. the single-scan entry point
     entry_point(torch, _build)
 
-    # 7. training
-    t0 = time.perf_counter()
-    train_launches, backward_ms = train_phase(torch, _build, kernels)
-    print(f"training phase: {time.perf_counter() - t0:.1f} s")
+    timed = {k: {e["key"] for e in v["shapes"]} for k, v in kernels.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 7. training
+        t0 = time.perf_counter()
+        train_launches, backward_ms, ckpt = train_phase(torch, _build, timed, tmp)
+        print(f"training phase: {time.perf_counter() - t0:.1f} s")
+
+        # 8. evaluation, with phase 7's checkpoint
+        t0 = time.perf_counter()
+        evaluate_phase(torch, _build, timed, ckpt, tmp)
+        print(f"evaluation phase: {time.perf_counter() - t0:.1f} s")
 
     idle = [name for name in SOURCES if not launches.get(name)]
     if idle:

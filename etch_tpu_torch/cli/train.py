@@ -108,7 +108,6 @@ def main(argv=None):
             os.path.join(args.output_folder, "checkpoints"), epoch, state,
             config_json=cfg.to_json(),
         )
-    logger.plot()
     return args.output_folder, state
 
 

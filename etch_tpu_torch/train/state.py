@@ -15,13 +15,21 @@ while the BN running statistics still advance (torch BN updates them in the
 forward, before the check).  The skip is a device-side select, as the JAX
 package's `jnp.where`: no step reads the loss on the host, and the step
 returns its losses as device tensors.
+
+A learning-rate schedule (`create_train_state(lr=cosine_decay_schedule(...))`,
+the counterpart of the JAX `tx=optax.adam(schedule)`) is evaluated, as optax
+evaluates it, at the count of updates made so far: Adam's own `step`, which
+the guard restores on a skipped step, so the schedule skips with the update.
+The learning rate is a tensor beside that count (on the card, `capturable`
+Adam reads it there), set on the device before each update: no host read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -42,11 +50,31 @@ ZERO_GRADIENT = re.compile(
     r"|dec[1-4]_up\.linear[12]\.bias|dec5_up\.linear1\.bias|final0\.bias|cls0\.bias)$")
 
 
+Schedule = Callable[[torch.Tensor], torch.Tensor]
+
+
 @dataclasses.dataclass
 class TrainState:
     model: EtchNet
     optimizer: torch.optim.Adam
     step: torch.Tensor   # () int64 on the model's device
+    lr_schedule: Optional[Schedule] = None   # of Adam's update count; None: a fixed lr
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0) -> Schedule:
+    """optax.cosine_decay_schedule as a function of a float32 count tensor:
+    init_value * ((1 - alpha) * 0.5 * (1 + cos(pi * min(count, T) / T)) +
+    alpha), in f32 on the count's device."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine_decay_schedule needs positive decay_steps, got {decay_steps}")
+    T = float(decay_steps)
+
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        count = torch.clamp(count, max=T)
+        cosine = 0.5 * (1 + torch.cos(math.pi * count / T))
+        return init_value * ((1 - alpha) * cosine + alpha)
+
+    return schedule
 
 
 def _device(device) -> torch.device:
@@ -57,19 +85,24 @@ def _device(device) -> torch.device:
     return device
 
 
-def make_optimizer(model: EtchNet, lr: float) -> torch.optim.Adam:
+def make_optimizer(model: EtchNet, lr: Union[float, Schedule]) -> torch.optim.Adam:
     """Adam with optax's defaults and its state made up front (zero moments,
     step 0, as `optax.adam(lr).init`), so a step that is skipped has a state
     to keep.  On the card the step counter lives on the device
-    (`capturable`), so the guard never reads it on the host."""
+    (`capturable`), so the guard never reads it on the host.  With a
+    schedule for `lr` the group's learning rate is a tensor beside the step
+    counter, holding the schedule at count 0 (`_guarded_update` sets it
+    before each update)."""
     params = list(model.parameters())
     capturable = params[0].is_cuda
+    step_device = params[0].device if capturable else torch.device("cpu")
+    if callable(lr):
+        lr = lr(torch.zeros((), dtype=torch.float32, device=step_device))
     opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                            capturable=capturable)
     for p in params:
         opt.state[p] = {
-            "step": torch.zeros((), dtype=torch.float32,
-                                device=p.device if capturable else "cpu"),
+            "step": torch.zeros((), dtype=torch.float32, device=step_device),
             "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
             "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
         }
@@ -81,11 +114,14 @@ def create_train_state(
     seed: int = 0,
     device="cuda",
     state_dict: Optional[Dict[str, torch.Tensor]] = None,
+    lr: Union[float, Schedule, None] = None,
 ) -> Tuple[EtchNet, TrainState, torch.optim.Adam]:
     """Build model, state and optimizer on `device` (the card unless the
     caller asks for the CPU).  The weights are `state_dict` (e.g. from
     `convert.flax_to_state_dict`) or drawn from a `torch.Generator` seeded
-    with `seed`."""
+    with `seed`.  `lr` overrides Adam's `cfg.lr` with another rate or a
+    schedule of the update count (`cosine_decay_schedule`), as the JAX
+    `tx=optax.adam(schedule)` does."""
     device = _device(device)
     model = EtchNet(cfg)
     if state_dict is None:
@@ -93,9 +129,11 @@ def create_train_state(
     else:
         model.load_state_dict(state_dict, strict=True)
     model = model.to(device)
-    opt = make_optimizer(model, cfg.lr)
+    lr = cfg.lr if lr is None else lr
+    opt = make_optimizer(model, lr)
     state = TrainState(model=model, optimizer=opt,
-                       step=torch.zeros((), dtype=torch.int64, device=device))
+                       step=torch.zeros((), dtype=torch.int64, device=device),
+                       lr_schedule=lr if callable(lr) else None)
     return model, state, opt
 
 
@@ -113,6 +151,9 @@ def _guarded_update(state: TrainState, loss: torch.Tensor) -> TrainState:
     for p in params:
         st = opt.state[p]
         kept += [p, st["exp_avg"], st["exp_avg_sq"], st["step"]]
+    if state.lr_schedule is not None:   # at the count of updates made so far
+        for group in opt.param_groups:
+            group["lr"].copy_(state.lr_schedule(opt.state[group["params"][0]]["step"]))
     old = torch._foreach_mul(kept, 1.0)     # copies, bit for bit, in few launches
     opt.step()
     ok = torch.isfinite(loss)

@@ -1,11 +1,10 @@
-"""Training metrics: JSONL scalars + per-loss matplotlib curves.
+"""Training metrics: JSONL scalars.
 
-A copy of `etch_tpu/utils/logging.py`; matplotlib stays optional (`plot`
-draws nothing where it is not installed).
-
-Covers the reference's observability surface: matplotlib loss curves
-(src/train.py:28-58) and TensorBoard scalars (src/train_mixed.py:202-214)
-via a dependency-light JSONL log that external tooling can tail.
+A copy of `etch_tpu/utils/logging.py` without its matplotlib curves (the
+port imports no matplotlib): the JSONL log carries the same per-epoch
+scalars, for external tooling to tail or plot.  It stands in for the
+reference's loss curves (src/train.py:28-58) and TensorBoard scalars
+(src/train_mixed.py:202-214).
 """
 
 from __future__ import annotations
@@ -30,20 +29,3 @@ class MetricLogger:
             f.write(json.dumps(rec) + "\n")
         for k, v in metrics.items():
             self.history[k].append(float(v))
-
-    def plot(self) -> None:
-        try:
-            import matplotlib
-
-            matplotlib.use("Agg")
-            import matplotlib.pyplot as plt
-        except Exception:
-            return
-        for name, values in self.history.items():
-            plt.figure()
-            plt.plot(values, label=f"{name}")
-            plt.xlabel("Epoch")
-            plt.ylabel(name)
-            plt.legend()
-            plt.savefig(os.path.join(self.log_dir, f"{name}.png"))
-            plt.close()

@@ -180,4 +180,3 @@ def test_metric_logger_jsonl(tmp_path):
     with open(ours.path, "rb") as a, open(ref.path, "rb") as b:
         assert a.read() == b.read()
     assert dict(ours.history) == dict(ref.history)
-    ours.plot()   # draws nothing where matplotlib is missing, never raises

@@ -125,3 +125,45 @@ def test_port_imports_no_jax():
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'etch_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+@pytest.mark.parametrize("module", [
+    "etch_tpu_torch.cli.evaluate", "etch_tpu_torch.cli.compute_mpjpe",
+    "etch_tpu_torch.cli.make_splits", "etch_tpu_torch.cli.correspondence",
+    "etch_tpu_torch.cli.generate_infopoints", "etch_tpu_torch.geometry.augment",
+    "etch_tpu_torch.data.amass", "etch_tpu_torch.utils.colormap",
+    "tools.torch_overfit_harness", "tools.torch_overfit_evidence",
+    "tools.torch_realdata_closed_loop"])
+def test_evaluation_and_tooling_import_no_jax_or_matplotlib(module):
+    code = (f"import sys, {module}; "
+            "bad = [m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'flax', 'etch_tpu', 'matplotlib')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_port_sources_import_no_jax_or_matplotlib():
+    """No import statement anywhere in the port's sources, `chip_smoke.py` or
+    the port's tools names these packages, at module level or inside a
+    function (a lazy import escapes the subprocess checks above)."""
+    import ast
+    import glob
+
+    files = (glob.glob(os.path.join(REPO, "etch_tpu_torch", "**", "*.py"), recursive=True)
+             + glob.glob(os.path.join(REPO, "tools", "torch_*.py"))
+             + [os.path.join(REPO, "chip_smoke.py")])
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}" for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "etch_tpu",
+                                           "matplotlib")]
+    assert len(files) > 50 and not bad, bad

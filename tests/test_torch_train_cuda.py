@@ -12,7 +12,12 @@ Run on a machine with an H100 and nvcc:
   - a tiny train step on the card against the CPU, the same weights and
     batch: the loss to 1e-5 relative, the gradient leaves (those not zero
     by construction) with a median relative error of 1e-3, and exactly the
-    f32 kernels launched.
+    f32 kernels launched;
+  - the scheduled Adam with its guard on the card against the CPU: the same
+    weights and gradients through three updates (the second with a NaN loss)
+    under `cosine_decay_schedule`: the learning rate of each update, Adam's
+    step count, the parameters and both moments within 1e-6, and the skipped
+    update leaves the rate where it was.
 """
 
 import statistics
@@ -23,7 +28,8 @@ import torch
 
 from etch_tpu_torch import _build
 from etch_tpu_torch.nn import interconv
-from etch_tpu_torch.train.state import ZERO_GRADIENT, create_train_state, make_train_step
+from etch_tpu_torch.train.state import (ZERO_GRADIENT, _guarded_update, cosine_decay_schedule,
+                                        create_train_state, make_train_step)
 from etch_tpu_torch.train.synthetic import make_batch
 from etch_tpu_torch.utils.config import EtchConfig
 
@@ -104,3 +110,37 @@ def test_tiny_train_step_card_vs_cpu(cuda):
     rel = [(card[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
            for k, g in cpu.items() if not ZERO_GRADIENT.search(k)]
     assert statistics.median(rel) <= 1e-3, statistics.median(rel)
+
+
+def test_scheduled_guarded_steps_card_vs_cpu(cuda):
+    cfg = EtchConfig.tiny(num_point=256, batch_size=2)
+    g = torch.Generator().manual_seed(4)
+    shapes = {n: p.shape for n, p in create_train_state(cfg, device="cpu")[0].named_parameters()}
+    grads = [{n: torch.randn(shape, generator=g) * 0.1 for n, shape in shapes.items()}
+             for _ in range(3)]
+    losses = (1.0, float("nan"), 1.0)
+
+    def run(device):
+        model, state, opt = create_train_state(cfg, seed=0, device=device,
+                                               lr=cosine_decay_schedule(1e-3, 4, alpha=0.05))
+        lrs = []
+        for grad, loss in zip(grads, losses):
+            for n, p in model.named_parameters():
+                p.grad = grad[n].to(device)
+            _guarded_update(state, torch.tensor(loss, device=device))
+            lrs.append(float(opt.param_groups[0]["lr"]))
+        tensors = {n: [t.detach().cpu() for t in (p, opt.state[p]["exp_avg"],
+                                                  opt.state[p]["exp_avg_sq"])]
+                   for n, p in model.named_parameters()}
+        steps = {float(opt.state[p]["step"]) for p in model.parameters()}
+        return lrs, steps, tensors
+
+    cpu_lrs, cpu_steps, cpu = run("cpu")
+    lrs, steps, card = run(cuda)
+    assert steps == cpu_steps == {2.0}
+    # counts 0, 1, then 1 again after the skipped update
+    assert lrs[2] == lrs[1] < lrs[0] and cpu_lrs[2] == cpu_lrs[1] < cpu_lrs[0]
+    assert max(abs(a - b) for a, b in zip(lrs, cpu_lrs)) <= 1e-9
+    for n in shapes:
+        for a, b in zip(card[n], cpu[n]):
+            assert (a - b).abs().max().item() <= 1e-6, n
