@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch port's serving step runs on an NVIDIA GPU.
+"""Quickest proof that the PyTorch port runs on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -21,7 +21,10 @@ built at first use).  Phases, each of which raises on failure:
      contraction at 66 kernel points, at 12 channels and at 262 neighbours,
      the vector attention at c = 1024; then the f32 path's FPS, kNN, ball
      query, occupancy conv and contraction shapes again at B=1, where
-     `cli/infer` and `cli/evaluate` launch them; ball query's bound counts the pairs
+     `cli/infer` and `cli/evaluate` launch them, and kNN at the fit's
+     shapes of phase 10 (k=1 between the 6,890 body vertices and the
+     5,000-point scan both ways, k=8 from the scan to the 6,888 face
+     centroids); ball query's bound counts the pairs
      its index-order scan must visit for these inputs, `bound_mn_ms` all
      M x N; the C == 1 body's counts its expanded-form weights,
      `bound_direct_ms` the direct form's):
@@ -100,7 +103,27 @@ built at first use).  Phases, each of which raises on failure:
      rounding, 1e-8 m); the npz schemas; each debug PLY reads back with N
      points; `cli.compute_mpjpe` on the outputs prints a finite MPJPE; the
      seconds of the scan (dataset load, pipeline build, forward, fit,
-     export) are printed.
+     export) are printed;
+  9. data parallel (`data_parallel_phase`, `parallel/mesh.py` through
+     tools/torch_parallel_check.py): one f32 train step of EtchConfig() on
+     one B=8, N=5000 capsule batch in two gloo ranks on the one card (B=4
+     each; NCCL refuses two ranks on one device) against one rank: the
+     loss, the gradients' global relative difference and the BatchNorm
+     statistics within DP_LOSS_RTOL, DP_GRAD_LIMIT and DP_BUFFER_LIMIT, the
+     ranks' parameters equal; the ranks' ms a step and peak memory; the
+     same step with the gradients summed and with per-rank BatchNorm must
+     exceed DP_GRAD_LIMIT (a line says so where gloo stages its reductions
+     through host copies); then `cli.train_mixed` at world size 1, one
+     epoch over the bundled 4D-DRESS item given twice (a two-part
+     ConcatDataset), with and without `--use_dynamic_label_confidence`:
+     its files and the f32 kernel set at shapes phase 3 timed;
+ 10. the fit's extras (`fit_extras_phase`) on the synthetic body at 6,890
+     vertices and a 5,000-point scan off its surface: `fit_smpl` against
+     the CPU; `point_mesh_distance` (k=8) and `chamfer_refine`
+     (CHAMFER_ITERATIONS, both ways, the GMM prior) against the same calls
+     with the plain kNN on the card, each launching kNN only, at shapes
+     phase 3 timed, as often as predicted; `fit_smpl_adam` (40 + 80 steps)
+     against the CPU; the seconds of each call.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on a path and per request, its headline shape's times, bound and
@@ -179,6 +202,28 @@ PATH_KERNELS["train_bf16"] = ("fps", "knn", "ball_query", "interconv_ones_proj",
                               "interconv_t_bf16")
 PATH_KERNELS["bf16_chunked_c1"] = PATH_KERNELS["bf16_chunked"] + ("interconv_t_c1",)
 C1_MLPS = ((1, 8), (8, 8))   # an EPN schedule whose second conv reads 1-channel rows
+# Phase 9: two gloo ranks on the card, B=4 each, against one rank at B=8:
+# the first step's loss (relative), its gradients' global norm-relative
+# difference, and its BatchNorm running statistics (max leaf error over the
+# leaf's largest value) within these; summed gradients and a per-rank
+# BatchNorm must exceed the gradient limit.  The port's own floor, 1 rank
+# against 1 rank with the batch's halves swapped, and the planted faults
+# are printed beside them.  On an H100: the ranks 0.0163 from one rank,
+# the floor 0.0166 (flax's variance rule amplifies reordered sums at full
+# width), summed gradients 1.0, a per-rank BatchNorm 1.26; loss 1.1e-6,
+# BatchNorm 7.8e-6 (PERF.md, section 6).
+DP_LOSS_RTOL = 1e-4
+DP_GRAD_LIMIT = 0.05
+DP_BUFFER_LIMIT = 1e-2
+DP_TIMED_STEPS = 2
+# Phase 10: the synthetic body at SMPL's vertex count and a scan of FIT_SCAN
+# points; card against CPU (the fits without a kNN) and the kNN kernel
+# against its plain version (point-to-mesh distance, Chamfer refinement):
+# vertices within FIT_TOL metres, losses within FIT_LOSS_RTOL.
+FIT_VERTS, FIT_SCAN = 6890, 5000
+FIT_TOL = 1e-3
+FIT_LOSS_RTOL = 1e-4
+CHAMFER_ITERATIONS = 50
 SCAN = "datafolder/4D-DRESS/data_processed/model/00122_Inner_Take2_00011/00122_Inner_Take2_00011.obj"
 MARKERSET_PATH = "datafolder/useful_data_4d-dress/superset_smpl.json"
 NPZ_SHAPES = {"body_pose": (21, 3), "hand_pose": (2, 3), "betas": (10,),
@@ -467,6 +512,22 @@ def compare_kernels(torch, dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
+    def knn_row(label, q, s, k):
+        """kNN at one shape: indices and squared distances equal to the
+        plain version's, then its row."""
+        b, Q, S = q.shape[0], q.shape[1], s.shape[1]
+        idx, d2 = kn.knn_cuda(q, s, k)
+        ridx, rd2 = kn.knn_torch(q, s, k)
+        if not torch.equal(idx, ridx):
+            raise AssertionError(f"knn {label}: kernel and plain indices differ")
+        err = (d2 - rd2).abs().max().item()
+        if err != 0.0:
+            raise AssertionError(f"knn {label}: squared distances differ by {err}")
+        record("knn", f"B={b} {label}", err,
+               lambda: kn.knn_cuda(q, s, k), 5,
+               cuda_ms(torch, lambda: kn.knn_torch(q, s, k), 2),
+               bound(b * (Q + S) * 12 + b * Q * k * 8, 0.0, 8.0 * b * Q * S))
+
     def f32_path_shapes(b, xyz):
         """The f32 path's launches of a request of b clouds of N points:
         FPS, kNN, ball query, the occupancy conv and the contraction.
@@ -498,19 +559,7 @@ def compare_kernels(torch, dev):
         if b == B:
             knn_shapes.append((48, 1250, N))   # repaired: k above 32 (passes of 32)
         for k, Q, S in knn_shapes:
-            q, s = clouds[Q], clouds[S]
-            label = f"k={k} {Q}x{S}"
-            idx, d2 = kn.knn_cuda(q, s, k)
-            ridx, rd2 = kn.knn_torch(q, s, k)
-            if not torch.equal(idx, ridx):
-                raise AssertionError(f"knn {label}: kernel and plain indices differ")
-            err = (d2 - rd2).abs().max().item()
-            if err != 0.0:
-                raise AssertionError(f"knn {label}: squared distances differ by {err}")
-            record("knn", f"B={b} {label}", err,
-                   lambda: kn.knn_cuda(q, s, k), 5,
-                   cuda_ms(torch, lambda: kn.knn_torch(q, s, k), 2),
-                   bound(b * (Q + S) * 12 + b * Q * k * 8, 0.0, 8.0 * b * Q * S))
+            knn_row(f"k={k} {Q}x{S}", clouds[Q], clouds[S], k)
 
         # ball query of each EPN conv: its centers among its input points
         # (conv0 samples 2500 by FPS, conv2 the first 1250 lazily)
@@ -630,6 +679,13 @@ def compare_kernels(torch, dev):
     torch.cuda.empty_cache()
     # the f32 path's shapes at B=1: the requests of cli/infer and cli/evaluate
     f32_path_shapes(1, xyz[:1].contiguous())
+    # the fit's extras (phase 10): the Chamfer term's nearest neighbours both
+    # ways, and the point-to-mesh distance's candidate faces
+    fit = fit_problem(torch, dev)
+    knn_row(f"k=1 {FIT_VERTS}x{FIT_SCAN} (Chamfer)", fit["verts"], fit["scan"], 1)
+    knn_row(f"k=1 {FIT_SCAN}x{FIT_VERTS} (Chamfer)", fit["scan"], fit["verts"], 1)
+    knn_row(f"k=8 {FIT_SCAN}x{fit['centroids'].shape[1]} (face centroids)", fit["scan"],
+            fit["centroids"], 8)
     return results
 
 
@@ -1557,6 +1613,227 @@ def train_phase(torch, _build, timed, tmp):
     return per_step, backward_ms, ckpt
 
 
+def data_parallel_phase(torch, _build, timed, tmp):
+    """Phase 9: (a) one f32 train step of EtchConfig() on one B=8, N=5000
+    batch of capsule clouds, in two gloo ranks on the card (B=4 each,
+    tools/torch_parallel_check.py) against one rank: loss, gradients and
+    BatchNorm statistics, then DP_TIMED_STEPS more steps for the ranks' ms
+    a step and peak memory; the same step with the gradients summed and
+    with per-rank BatchNorm must fail; (b) `cli.train_mixed` at world size
+    1 for one epoch on the bundled item given twice, with and without the
+    dynamic labels: its files, the f32 kernel set at shapes phase 3 timed."""
+    from etch_tpu_torch.cli import train_mixed
+    from etch_tpu_torch.train.state import ZERO_GRADIENT
+    from etch_tpu_torch.train.synthetic import make_batch
+    from etch_tpu_torch.utils.config import EtchConfig
+    from tools import torch_parallel_check as check
+
+    print("data parallel:")
+    cfg = EtchConfig(num_point=N, batch_size=B)
+    batch = make_batch(np.random.RandomState(3), B, N)
+    flipped = {k: np.ascontiguousarray(np.concatenate([v[B // 2:], v[:B // 2]]))
+               for k, v in batch.items()}
+    t0 = time.perf_counter()
+    single = check.run(1, cfg, [batch], device="cuda")[0][0]
+    floor = check.compare(check.run(1, cfg, [flipped], device="cuda")[0], single, ZERO_GRADIENT)
+    torch.cuda.empty_cache()
+    fault_names = ("sum", "local_bn")
+    ranks, *faulty = check.run(2, cfg, [batch], faults=(None,) + fault_names, device="cuda",
+                               backend="gloo", timed_steps=DP_TIMED_STEPS, threads=4)
+    got = check.compare(ranks, single, ZERO_GRADIENT)
+    faults = {f: check.compare(r, single, ZERO_GRADIENT) for f, r in zip(fault_names, faulty)}
+    fmt = lambda c: ", ".join(f"{k} {c[k]:.3g}" for k in
+                              ("loss", "grads_global", "grads", "buffers", "ranks_apart"))
+    print("  gloo refuses CUDA tensors in this build: the reductions are staged through "
+          "pinned host copies; the compute stays on the card" if ranks[0]["staged"] else
+          "  gloo takes CUDA tensors in this build: no staging")
+    print(f"  2 gloo ranks on {ranks[0]['device']} (B=4 each) against 1 rank (B=8), f32, "
+          f"N={N}, first step: {fmt(got)}")
+    print(f"  1 rank with the batch's halves swapped (the floor): {fmt(floor)}")
+    for f, c in faults.items():
+        print(f"  planted fault {f}: {fmt(c)}")
+    print(f"  ms a step (median of {DP_TIMED_STEPS}, each rank B=4): "
+          f"{[round(r['step_ms'], 2) for r in ranks]}, with {ranks[0]['collectives']} "
+          f"all-reduces a step; peak memory a rank "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; limits: loss {DP_LOSS_RTOL}, "
+          f"gradients {DP_GRAD_LIMIT}, BatchNorm {DP_BUFFER_LIMIT}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not (got["loss"] <= DP_LOSS_RTOL and got["grads_global"] <= DP_GRAD_LIMIT
+            and got["buffers"] <= DP_BUFFER_LIMIT and got["ranks_apart"] == 0.0):
+        raise AssertionError(f"data parallel step against one rank: {got}")
+    caught = [f for f, c in faults.items() if c["grads_global"] > DP_GRAD_LIMIT]
+    if caught != list(faults):
+        raise AssertionError(f"data parallel: planted faults passed the limits: {faults}")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    scan_dir, smpl_dir, info_dir, ids = (os.path.join(root, p) for p in SAMPLE)
+    spec = ":".join((scan_dir, smpl_dir, info_dir, ids))
+    for dynamic in (False, True):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out, state = train_mixed.main(
+            ["--dataset_spec", spec, spec, "--epochs", "1", "--batch_size", "1",
+             "--num_workers", "0", "--device", "cuda", "--markerset_path",
+             os.path.join(root, MARKERSET_PATH),
+             "--output_folder", os.path.join(tmp, f"mixed_{dynamic}")]
+            + (["--use_dynamic_label_confidence"] if dynamic else []))
+        secs = time.perf_counter() - t0
+        ran = {k for k, v in _build.launches.items() if v}
+        untimed = {k: sorted(set(v) - timed[k]) for k, v in _build.shape_launches.items()
+                   if set(v) - timed[k]}
+        with open(os.path.join(out, "log_all", "metrics.jsonl")) as fh:
+            rows = [json.loads(line) for line in fh]
+        files = sorted(os.listdir(out)), os.listdir(os.path.join(out, "checkpoints"))
+        if files != (["checkpoints", "log_all", "training_args.json"], ["0.pt"]):
+            raise AssertionError(f"cli/train_mixed wrote {files}")
+        if ran != set(PATH_KERNELS["f32"]) or untimed:
+            raise AssertionError(f"cli/train_mixed: kernels {sorted(ran)}, untimed {untimed}")
+        if int(state.step) != 2 or not np.isfinite(rows[0]["all_loss"]):
+            raise AssertionError(f"cli/train_mixed: {int(state.step)} steps, log {rows}")
+        print(f"  cli/train_mixed (world size 1, 1 epoch over the bundled item twice, B=1, "
+              f"N={N}, f32, dynamic labels {dynamic}): {secs:.1f} s, loss "
+              f"{rows[0]['all_loss']:.5f}, launches {json.dumps(dict(_build.launches))}")
+
+
+def fit_problem(torch, dev):
+    """Phase 10's problem: the synthetic body at FIT_VERTS vertices posed by
+    seeded parameters, its vertices (1, V, 3), a scan of FIT_SCAN points
+    on its surface moved 5 mm off at random (no point on a vertex), its
+    face centroids (1, F, 3) and the body."""
+    from etch_tpu_torch.body.smpl import smpl_forward, synthetic_body_model
+
+    body = synthetic_body_model(n_verts=FIT_VERTS).to(dev)
+    rng = np.random.RandomState(11)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    params = (t(rng.randn(1, 10) * 0.5), t(rng.randn(1, 69) * 0.05), t([[0.1, -0.2, 0.15]]),
+              t([[0.05, 0.1, -0.08]]))
+    with torch.no_grad():
+        verts, _ = smpl_forward(body, *params)
+    tri = verts[0][torch.as_tensor(body.faces, dtype=torch.long, device=dev)]   # (F, 3, 3)
+    face = rng.randint(0, tri.shape[0], FIT_SCAN)
+    bary = t(rng.dirichlet([1.0, 1.0, 1.0], FIT_SCAN))
+    scan = (bary[:, :, None] * tri[torch.as_tensor(face, device=dev)]).sum(1)
+    scan = scan + t(rng.randn(FIT_SCAN, 3) * 5e-3)
+    return {"body": body, "verts": verts.contiguous(), "scan": scan[None].contiguous(),
+            "centroids": tri.mean(1)[None].contiguous()}
+
+
+def fit_extras_phase(torch, _build, timed):
+    """Phase 10: the fit's extras on the card, on `fit_problem`: `fit_smpl`
+    (markers from inner points about 86 vertices, the two-stage LM, SMPL)
+    against the CPU; `point_mesh_distance` (kNN kernel, k=8) and
+    `chamfer_refine` from that fit (CHAMFER_ITERATIONS, both ways, the
+    synthetic GMM prior; kNN kernel, k=1 each way) against the same calls
+    with the plain kNN on the card, each kernel launch counted at a shape
+    phase 3 timed; `fit_smpl_adam` (40 + 80 steps) against the CPU.
+    Prints the seconds of each call."""
+    from etch_tpu_torch.body.smpl import marker_forward, marker_submodel, smpl_forward
+    from etch_tpu_torch.fit.adam import fit_smpl_adam
+    from etch_tpu_torch.fit.chamfer_refine import chamfer_refine
+    from etch_tpu_torch.fit.prior import synthetic_gmm
+    from etch_tpu_torch.fit.smpl_fit import fit_smpl
+    from etch_tpu_torch.ops.point_mesh import point_mesh_distance
+    kn = importlib.import_module("etch_tpu_torch.ops.knn")
+
+    print("the fit's extras:")
+    dev = torch.device("cuda", 0)
+    fit = fit_problem(torch, dev)
+    body, cpu_body = fit["body"], fit["body"].to("cpu")
+    vids = np.linspace(0, FIT_VERTS - 1, 86).astype(np.int32)
+    rng = np.random.RandomState(12)
+    inner = (fit["verts"][0, vids].repeat_interleave(4, 0)
+             + torch.as_tensor(rng.randn(86 * 4, 3) * 2e-3, dtype=torch.float32, device=dev))[None]
+    labels = torch.arange(86, device=dev).repeat_interleave(4)[None]
+    conf = torch.as_tensor(rng.rand(1, 86 * 4, 1), dtype=torch.float32, device=dev)
+
+    def timed_call(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def plain_knn(fn):
+        sound = kn.knn_cuda
+        kn.knn_cuda = kn.knn_torch
+        try:
+            return fn()
+        finally:
+            kn.knn_cuda = sound
+
+    def counted(fn, want):
+        """fn() with the launch counts set to 0 just before and read just
+        after: only kNN, `want` times at each shape, each timed."""
+        _build.reset_launch_counts()
+        out = timed_call(fn)
+        shapes = {k: dict(v) for k, v in _build.shape_launches.items() if v}
+        if set(shapes) != {"knn"} or set(shapes["knn"].values()) != {want}:
+            raise AssertionError(f"launches {shapes}, expected kNN x{want} at each shape")
+        if set(shapes["knn"]) - timed["knn"]:
+            raise AssertionError(f"kNN at shapes phase 3 did not time: {shapes}")
+        return out, shapes["knn"]
+
+    with torch.no_grad():
+        (verts, params, mk, valid, _), fit_s = timed_call(
+            lambda: fit_smpl(body, vids, inner, labels, conf))
+        cpu = fit_smpl(cpu_body, vids, inner.cpu(), labels.cpu(), conf.cpu())
+    fit_err = (verts.cpu() - cpu[0]).abs().max().item()
+    marker_err = (verts[0, vids] - fit["verts"][0, vids]).norm(dim=-1).max().item()
+    print(f"  fit_smpl (86 markers, LM 30 + 50, V={FIT_VERTS}): {fit_s:.2f} s; vertices "
+          f"{fit_err:.3g} m from the CPU's; fitted markers within {marker_err:.3g} m of the "
+          f"posed body's")
+    if not fit_err <= FIT_TOL:
+        raise AssertionError(f"fit_smpl: card and CPU vertices {fit_err} apart")
+
+    with torch.no_grad():
+        (d, pmd_s), pmd_shapes = counted(
+            lambda: point_mesh_distance(fit["scan"], verts, body.faces, k=8), 1)
+        d_plain = plain_knn(lambda: point_mesh_distance(fit["scan"], verts, body.faces, k=8))
+    if not torch.equal(d, d_plain) or not torch.isfinite(d).all():
+        raise AssertionError("point_mesh_distance: the kNN kernel's distances differ from "
+                             "the plain kNN's")
+    print(f"  point_mesh_distance ({FIT_SCAN} points, k=8 of {fit['centroids'].shape[1]} "
+          f"faces): {pmd_s * 1e3:.2f} ms; equal to the plain kNN's; median "
+          f"{d.median().item() * 1e3:.3f} mm; kNN launches {pmd_shapes}")
+
+    prior = synthetic_gmm().to(dev)
+    init = (params["pose"], params["betas"], params["global_orient"], params["transl"])
+    refine = lambda: chamfer_refine(body, fit["scan"][0], *init, prior=prior,
+                                    iterations=CHAMFER_ITERATIONS, bidirectional=True)
+    (ref, ch_s), ch_shapes = counted(refine, CHAMFER_ITERATIONS)
+    plain = plain_knn(refine)
+    with torch.no_grad():
+        v_ref, _ = smpl_forward(body, ref["betas"], ref["pose"], ref["orient"], ref["transl"])
+        v_plain, _ = smpl_forward(body, plain["betas"], plain["pose"], plain["orient"],
+                                  plain["transl"])
+    ch_err = (v_ref - v_plain).abs().max().item()
+    loss_err = abs(ref["final_loss"].item() - plain["final_loss"].item()) / abs(
+        plain["final_loss"].item())
+    moved = (v_ref - verts).norm(dim=-1).mean().item()
+    print(f"  chamfer_refine ({CHAMFER_ITERATIONS} iterations, both ways, prior): {ch_s:.2f} s "
+          f"({ch_s / CHAMFER_ITERATIONS * 1e3:.2f} ms an iteration); final loss "
+          f"{ref['final_loss'].item():.6f}, {loss_err:.3g} from the plain kNN's, vertices "
+          f"{ch_err:.3g} m from its; moved the fit {moved * 1e3:.3f} mm; kNN launches "
+          f"{ch_shapes}")
+    if not (ch_err <= FIT_TOL and loss_err <= FIT_LOSS_RTOL):
+        raise AssertionError(f"chamfer_refine: kernel and plain kNN {ch_err} m, loss {loss_err}")
+
+    sub = marker_submodel(body, vids)
+    adam, adam_s = timed_call(lambda: fit_smpl_adam(sub, mk, valid, 40, 80))
+    cpu_adam = fit_smpl_adam(marker_submodel(cpu_body, vids), mk.cpu(), valid.cpu(), 40, 80)
+    with torch.no_grad():
+        fwd = lambda s, p: marker_forward(s, p["betas"], p["pose"], p["global_orient"],
+                                          p["transl"])
+        adam_err = (fwd(sub, adam).cpu() - fwd(marker_submodel(cpu_body, vids), cpu_adam)
+                    ).abs().max().item()
+    adam_loss = abs(adam["final_loss"].item() - cpu_adam["final_loss"].item()) / abs(
+        cpu_adam["final_loss"].item())
+    print(f"  fit_smpl_adam (40 + 80 steps): {adam_s:.2f} s; markers {adam_err:.3g} m and "
+          f"final loss {adam_loss:.3g} (relative) from the CPU's")
+    if not (adam_err <= FIT_TOL and adam_loss <= 1e-2):
+        raise AssertionError(f"fit_smpl_adam: card and CPU {adam_err} m, loss {adam_loss}")
+
+
 def evaluate_phase(torch, _build, timed, ckpt, tmp):
     """Phase 8: `python -m etch_tpu_torch.cli.evaluate` (its `main`) on the
     repository's 4D-DRESS sample at EtchConfig(), N=5000, B=1, f32, with the
@@ -1682,7 +1959,10 @@ def main():
 
     # 3. kernel vs plain at main-path shapes
     print("kernel vs plain PyTorch on the card:")
+    t0 = time.perf_counter()
     kernels = compare_kernels(torch, dev)
+    print(f"kernel phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
 
     # 4. small-input reference; the 1-channel body runs only here (one
     # request per step)
@@ -1700,6 +1980,8 @@ def main():
     for label, overrides, path, seeds in DEEP_STEPS:
         small_step(torch, _build, label, deep_config(overrides), path, full_width=True,
                    seeds=seeds)
+    print(f"small-input reference phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
 
     # 5. main paths at full width: bf16 (what bench.py times), bf16 with the
     # chunked direction core, then f32; each kernel's counts from the first
@@ -1716,9 +1998,12 @@ def main():
     print(f"direction head ms B={B}: fused {stages['bf16']['direction_head']}, chunked "
           f"{stages['bf16_chunked']['direction_head']}; forward fused "
           f"{stages['bf16']['forward']}, chunked {stages['bf16_chunked']['forward']}")
+    print(f"main-path phase: {time.perf_counter() - t0:.1f} s")
 
     # 6. the single-scan entry point
+    t0 = time.perf_counter()
     entry_point(torch, _build)
+    print(f"entry-point phase: {time.perf_counter() - t0:.1f} s")
 
     timed = {k: {e["key"] for e in v["shapes"]} for k, v in kernels.items()}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1731,6 +2016,16 @@ def main():
         t0 = time.perf_counter()
         evaluate_phase(torch, _build, timed, ckpt, tmp)
         print(f"evaluation phase: {time.perf_counter() - t0:.1f} s")
+
+        # 9. data parallel
+        t0 = time.perf_counter()
+        data_parallel_phase(torch, _build, timed, tmp)
+        print(f"data-parallel phase: {time.perf_counter() - t0:.1f} s")
+
+    # 10. the fit's extras
+    t0 = time.perf_counter()
+    fit_extras_phase(torch, _build, timed)
+    print(f"fit extras phase: {time.perf_counter() - t0:.1f} s")
 
     idle = [name for name in SOURCES if not launches.get(name)]
     if idle:

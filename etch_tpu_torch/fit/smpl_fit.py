@@ -7,15 +7,18 @@ Port of `etch_tpu/fit/smpl_fit.py:fit_smpl_params` (reference
   stage 1: pose + all 10 betas + orient + transl, warm-started,
            50 LM iterations, step 0.2, damping 1e-3
 Residual: (markers - forward_markers) * valid, flattened (M*3), evaluated on
-the marker-restricted SMPL submodel.
+the marker-restricted SMPL submodel.  `fit_smpl` is the whole path from
+inner points: markers, the fit, then the full SMPL forward.
 """
 
 from __future__ import annotations
 
 import torch
 
-from etch_tpu_torch.body.smpl import MarkerSubModel, marker_forward
+from etch_tpu_torch.body.smpl import (MarkerSubModel, SMPLModel, marker_forward,
+                                     marker_submodel, smpl_forward)
 from etch_tpu_torch.fit.lm import levenberg_marquardt
+from etch_tpu_torch.fit.markers import extract_markers
 
 NUM_POSE = 69  # 23 joints * 3
 
@@ -56,3 +59,22 @@ def fit_smpl_params(sub: MarkerSubModel, markers: torch.Tensor, valid: torch.Ten
                                steps_stage1, lr_stage1, damping_stage1)
     pose, betas, orient, transl = _unpack(x_s1, num_betas)
     return {"pose": pose, "betas": betas, "global_orient": orient, "transl": transl}
+
+
+def fit_smpl(model: SMPLModel, marker_vids, inner_points: torch.Tensor,
+             part_labels: torch.Tensor, confidences: torch.Tensor,
+             steps_stage0: int = 30, steps_stage1: int = 50,
+             lr_stage0: float = 0.5, lr_stage1: float = 0.2):
+    """Inner points (B, K, 3), part labels (B, K) and confidences (B, K, 1)
+    -> markers -> fitted SMPL.  Returns (vertices (B, V, 3), params dict,
+    markers (B, M, 3), valid (B, M), joints (B, J, 3)), the information
+    surface of reference fit_SMPL.py:68-269."""
+    markers, valid = extract_markers(inner_points, part_labels, confidences,
+                                     num_markers=len(marker_vids))
+    params = fit_smpl_params(marker_submodel(model, marker_vids), markers, valid,
+                             steps_stage0=steps_stage0, steps_stage1=steps_stage1,
+                             lr_stage0=lr_stage0, lr_stage1=lr_stage1,
+                             num_betas=int(model.num_betas))
+    verts, joints = smpl_forward(model, params["betas"], params["pose"],
+                                 params["global_orient"], params["transl"])
+    return verts, params, markers, valid, joints

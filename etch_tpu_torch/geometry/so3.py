@@ -1,10 +1,14 @@
-"""SO(3) utilities in PyTorch: the chordal projection used by the direction
-head and the axis-angle map used by SMPL.
+"""SO(3) utilities in PyTorch: rotation conversions and the weighted
+chordal mean.
 
-Port of `etch_tpu/geometry/so3.py` (`project_to_so3`, `rodrigues`,
-`quaternion_to_matrix`).  Every function is written with elementwise ops and
-`torch.where` only, so it runs under `torch.func.vmap` / `jacfwd` (the LM
-fit differentiates through `rodrigues`).
+Port of `etch_tpu/geometry/so3.py` (reference `src/models/so3conv.py:
+186-225`, `src/utils/rotation_conversions.py`): the chordal projection the
+direction head uses (`project_to_so3`, Davenport's q-method) and its SVD
+form kept for tests (`project_to_so3_svd`), `so3_mean`, the axis-angle map
+SMPL uses (`rodrigues`) and its inverse, and the quaternion and 6D
+conversions.  `project_to_so3` and `rodrigues` are written with
+elementwise ops and `torch.where` only, so they run under `torch.func.vmap`
+/ `jacfwd` (the LM fit differentiates through `rodrigues`).
 """
 
 from __future__ import annotations
@@ -18,6 +22,17 @@ def _bmm4(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _trace(m: torch.Tensor) -> torch.Tensor:
     return torch.diagonal(m, dim1=-2, dim2=-1).sum(-1)
+
+
+def project_to_so3_svd(C: torch.Tensor) -> torch.Tensor:
+    """SVD projection onto SO(3): U diag(1, 1, det(U V^T)) V^T (reference
+    so3_mean core, src/models/so3conv.py:215-225), of C + 1e-8 I.  The
+    reference form, for tests; `project_to_so3` computes the same rotation."""
+    eps = 1e-8 * torch.eye(3, dtype=C.dtype, device=C.device)
+    u, _, vt = torch.linalg.svd(C + eps, full_matrices=False)
+    det = torch.linalg.det(u @ vt)
+    d = torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1)
+    return (u * d[..., None, :]) @ vt
 
 
 def project_to_so3(C: torch.Tensor, newton_iters: int = 30) -> torch.Tensor:
@@ -80,6 +95,13 @@ def project_to_so3(C: torch.Tensor, newton_iters: int = 30) -> torch.Tensor:
     return quaternion_to_matrix(q)
 
 
+def so3_mean(Rs: torch.Tensor, weights: torch.Tensor = None) -> torch.Tensor:
+    """Weighted chordal-L2 mean of rotations Rs (..., N, 3, 3), weights
+    (..., N) or None -> (..., 3, 3)."""
+    C = Rs.sum(-3) if weights is None else (weights[..., None, None] * Rs).sum(-3)
+    return project_to_so3(C)
+
+
 def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
     """Unit quaternion (..., 4) wxyz -> rotation matrix (..., 3, 3)."""
     q = q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp(min=1e-8)
@@ -131,3 +153,44 @@ def rodrigues(axis_angle: torch.Tensor) -> torch.Tensor:
         dim=-2,
     )
     return torch.where(small[..., None], eye + Klin, R)
+
+
+def rotation_matrix_to_axis_angle(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> axis-angle (..., 3)."""
+    cos = torch.clamp((_trace(R) - 1.0) / 2.0, -1.0, 1.0)
+    theta = torch.arccos(cos)
+    w = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], -1)
+    sin = torch.sin(theta)
+    small = sin.abs() < 1e-7
+    scale = torch.where(small, torch.full_like(theta, 0.5),
+                        theta / torch.where(small, torch.ones_like(sin), 2.0 * sin))
+    return w * scale[..., None]
+
+
+def matrix_to_quaternion(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (..., 4) wxyz, w >= 0:
+    Shepperd's method without branches (all four candidates, the best
+    conditioned taken)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    qw = torch.stack([1 + m00 + m11 + m22, m21 - m12, m02 - m20, m10 - m01], -1)
+    qx = torch.stack([m21 - m12, 1 + m00 - m11 - m22, m01 + m10, m02 + m20], -1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1 - m00 + m11 - m22, m12 + m21], -1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1 - m00 - m11 + m22], -1)
+    cands = torch.stack([qw, qx, qy, qz], -2)                   # (..., 4, 4)
+    best = torch.argmax((cands * cands).sum(-1), dim=-1)
+    q = torch.gather(cands, -2, best[..., None, None].expand(best.shape + (1, 4)))[..., 0, :]
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp(min=1e-8)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)           # canonical hemisphere
+
+
+def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
+    """Continuous 6D rotation representation (..., 6) -> (..., 3, 3), rows
+    b1, b2, b3 by Gram-Schmidt."""
+    a1, a2 = d6[..., :3], d6[..., 3:]
+    b1 = a1 / torch.linalg.norm(a1, dim=-1, keepdim=True).clamp(min=1e-8)
+    b2 = a2 - (b1 * a2).sum(-1, keepdim=True) * b1
+    b2 = b2 / torch.linalg.norm(b2, dim=-1, keepdim=True).clamp(min=1e-8)
+    return torch.stack([b1, b2, torch.linalg.cross(b1, b2, dim=-1)], -2)

@@ -18,6 +18,10 @@ follow the flax tree (`Dense_0`, `BatchNorm_0`, `linear_q`, `w_bn0_scale`,
     its plain version; every U-Net block is recomputed in the backward pass
     (`torch.utils.checkpoint`, where the JAX package has `nn.remat`), and a
     recomputed block does not move the running statistics a second time.
+    Under data parallelism (`parallel/mesh.py`, bound by `bind_mesh`) every
+    batch statistic is the global batch's, as GSPMD takes it: the sums are
+    all-reduced with autograd, and a recomputed block all-reduces again, in
+    the same order on every rank.
 
 `dtype=torch.bfloat16` is the bf16 serving path (flax `dtype=bfloat16`):
 every Dense and BatchNorm returns bf16 where flax does (`Dense`,
@@ -38,6 +42,7 @@ from etch_tpu_torch.nn.bf16 import mm
 from etch_tpu_torch.nn.grouped_head import grouped_head, grouped_head_torch
 from etch_tpu_torch.nn.vector_attention import vector_attention
 from etch_tpu_torch.ops import fps, gather_points, group_points, knn, knn_interpolate
+from etch_tpu_torch.parallel.mesh import all_reduce_sum
 
 _BN_EPS = 1e-5
 _BN_MOM = 0.9  # torch BatchNorm1d momentum 0.1 == flax momentum 0.9
@@ -73,6 +78,24 @@ def update_running(running: torch.Tensor, batch: torch.Tensor) -> None:
         running.copy_(_BN_MOM * running + (1 - _BN_MOM) * batch)
 
 
+def sharded(mesh) -> bool:
+    return mesh is not None and mesh.world_size > 1
+
+
+def global_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of (..., C) `x` over every leading axis and over the ranks
+    of `mesh` (equal shards), differentiable: one all-reduce."""
+    n = x.numel() // x.shape[-1] * mesh.world_size
+    return all_reduce_sum(x.sum(tuple(range(x.ndim - 1))), mesh) / n
+
+
+def bind_mesh(model: nn.Module, mesh) -> None:
+    """Take every batch statistic of `model` over `mesh`'s global batch."""
+    for m in model.modules():
+        if isinstance(m, (BatchNorm, PointTransformerLayer)):
+            m.mesh = mesh
+
+
 class Dense(nn.Linear):
     """flax nn.Dense: f32 by default; with dtype=bf16, bf16 operands, an f32
     sum rounded to bf16, then the bf16 bias added and rounded again."""
@@ -100,6 +123,7 @@ class BatchNorm(nn.Module):
     def __init__(self, c: int, dtype=None):
         super().__init__()
         self.dtype = dtype
+        self.mesh = None
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
@@ -110,8 +134,11 @@ class BatchNorm(nn.Module):
         if train:
             xf = x.float()
             dims = tuple(range(x.ndim - 1))
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            if sharded(self.mesh):   # the global batch's E[x] and E[x^2], one all-reduce
+                mean, sq = global_mean(torch.cat([xf, xf * xf], -1), self.mesh).chunk(2)
+            else:
+                mean, sq = xf.mean(dims), (xf * xf).mean(dims)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             update_running(self.running_mean, mean)
             update_running(self.running_var, var)
         scale = torch.rsqrt(var + _BN_EPS) * self.weight
@@ -172,6 +199,7 @@ class PointTransformerLayer(nn.Module):
         self.register_buffer("w_bn0_var", torch.ones(c))
         self.register_buffer("w_bn1_mean", torch.zeros(cs))
         self.register_buffer("w_bn1_var", torch.ones(cs))
+        self.mesh = None
 
     def forward(self, p, x, idx, p_r, train: bool = False):
         B, N, ns = idx.shape
@@ -191,12 +219,16 @@ class PointTransformerLayer(nn.Module):
             self.w1_kernel, self.w1_bias)
         return out.reshape(B, N, c).to(x.dtype)
 
-    @staticmethod
-    def _batch_norm(w, mean, var, scale, bias):
+    def _batch_norm(self, w, mean, var, scale, bias):
         """The w-chain's train BN (`jnp.mean` / `jnp.var` over the leading
-        axes, as the JAX chain takes them) and its running-stat update."""
-        mu = w.mean((0, 1, 2))
-        v = w.var((0, 1, 2), unbiased=False)
+        axes, as the JAX chain takes them; over the ranks too where a mesh
+        is bound) and its running-stat update."""
+        if sharded(self.mesh):
+            mu = global_mean(w, self.mesh)
+            v = global_mean((w - mu) ** 2, self.mesh)
+        else:
+            mu = w.mean((0, 1, 2))
+            v = w.var((0, 1, 2), unbiased=False)
         update_running(mean, mu)
         update_running(var, v)
         return (w - mu) * (scale / torch.sqrt(v + _BN_EPS)) + bias

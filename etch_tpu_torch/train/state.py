@@ -22,6 +22,14 @@ evaluates it, at the count of updates made so far: Adam's own `step`, which
 the guard restores on a skipped step, so the schedule skips with the update.
 The learning rate is a tensor beside that count (on the card, `capturable`
 Adam reads it there), set on the device before each update: no host read.
+
+Data parallelism (`parallel/mesh.py`: `state = replicate(mesh, state)`,
+each rank fed `shard_batch(mesh, batch)`): after the backward the
+gradients are averaged over the ranks in one flat all-reduce, before the
+guard's `nan_to_num` (a NaN on one rank zeroes that entry on every rank, as
+in the JAX global gradient); the losses the step returns are the global
+batch's means, and the guard decides on the global loss, so every rank
+takes or skips the same update.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import torch
 
 from etch_tpu_torch.models.etch_net import EtchNet, init_params
+from etch_tpu_torch.parallel.mesh import Mesh, average_gradients, global_means
 from etch_tpu_torch.train.losses import compute_losses
 from etch_tpu_torch.utils.config import EtchConfig
 
@@ -59,6 +68,7 @@ class TrainState:
     optimizer: torch.optim.Adam
     step: torch.Tensor   # () int64 on the model's device
     lr_schedule: Optional[Schedule] = None   # of Adam's update count; None: a fixed lr
+    mesh: Optional[Mesh] = None   # data parallelism (`parallel/mesh.py::replicate`)
 
 
 def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0) -> Schedule:
@@ -148,9 +158,8 @@ def _guarded_update(state: TrainState, loss: torch.Tensor) -> TrainState:
             p.grad = torch.zeros_like(p)
         torch.nan_to_num(p.grad, out=p.grad)
     kept = []
-    for p in params:
-        st = opt.state[p]
-        kept += [p, st["exp_avg"], st["exp_avg_sq"], st["step"]]
+    for p in params:   # each parameter and its optimizer state (Adam: moments and step)
+        kept += [p] + [t for t in opt.state[p].values() if torch.is_tensor(t)]
     if state.lr_schedule is not None:   # at the count of updates made so far
         for group in opt.param_groups:
             group["lr"].copy_(state.lr_schedule(opt.state[group["params"][0]]["step"]))
@@ -178,8 +187,12 @@ def _step(state: TrainState, batch, cfg: EtchConfig, targets):
     confidences, labels = targets(outputs, b)
     losses = compute_losses(cfg, outputs, b["vectors"], confidences, labels)
     losses["all_loss"].backward()
-    _guarded_update(state, losses["all_loss"].detach())
-    return state, {k: v.detach() for k, v in losses.items()}
+    losses = {k: v.detach() for k, v in losses.items()}
+    if state.mesh is not None and state.mesh.world_size > 1:
+        average_gradients(state.mesh, [p for g in opt.param_groups for p in g["params"]])
+        losses = global_means(state.mesh, losses)
+    _guarded_update(state, losses["all_loss"])
+    return state, losses
 
 
 def make_train_step(model: EtchNet, optimizer: torch.optim.Adam, cfg: EtchConfig):

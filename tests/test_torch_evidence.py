@@ -16,6 +16,10 @@
     (tools/torch_overfit_evidence.py, tools/torch_realdata_closed_loop.py)
     held to the JAX gates of tests/test_overfit.py word for word, each from
     an H100 and with its tool's recipe.  A missing artifact fails.
+  - The held-out generalization artifact of the card
+    (tools/torch_generalization_evidence.py) held to the gates of
+    tests/test_generalization.py word for word, on the tool's recipe; the
+    port's synthetic body family bit-equal to the JAX harness's.
   - The closed loop's V2V to the oracle fit belongs to its markers, not to
     the port's fit: the 86 markers the card's trained evaluation fitted,
     fitted again on the CPU by the JAX package's LM and by the port's, land
@@ -197,3 +201,42 @@ def test_realdata_closed_loop_fit_witness():
     assert abs(jax_cm - card_cm) <= 0.25 * card_cm, (jax_cm, card_cm)
     assert abs(port_cm - card_cm) <= 0.25 * card_cm, (port_cm, card_cm)
     assert apart_cm <= 0.1 * card_cm, (apart_cm, card_cm)
+
+
+def test_generalization_family_is_the_jax_copy():
+    from tools import generalization_harness as jax_harness
+    from tools import torch_generalization_harness as harness
+
+    assert harness.marker_vertex_ids() == jax_harness.marker_vertex_ids()
+    for seed in (0, 7, 105):
+        for ours, ref in zip(harness.make_pair(seed), jax_harness.make_pair(seed)):
+            np.testing.assert_array_equal(ours.vertices, ref.vertices)
+            np.testing.assert_array_equal(ours.faces, ref.faces)
+
+
+def test_generalization_h100_artifact():
+    """tests/test_generalization.py::test_generalization_artifact's gates,
+    on the tool's recipe."""
+    from tools import torch_generalization_evidence as gen
+
+    r = _artifact("generalization_h100.json", "tools/torch_generalization_evidence.py")
+    c = r["config"]
+    assert ((c["train_bodies"], c["eval_bodies"], c["samplings"], c["steps"], c["num_point"],
+             c["batch"], c["lr"])
+            == (len(gen.TRAIN_SEEDS), len(gen.EVAL_SEEDS), gen.SAMPLINGS, gen.STEPS,
+                gen.NUM_POINT, gen.BATCH, gen.LR)), c
+    assert c["eval_bodies"] >= 8
+    assert c["train_bodies"] >= 8
+    held = r["trained"]["heldout"]
+    rnd = r["random"]["heldout"]
+    assert held["direction_cosine"] > 0.9, held
+    assert held["label_acc"] > 0.6, held
+    assert held["marker_err_cm"] < 0.2 * rnd["marker_err_cm"], (held, rnd)
+    assert held["v2v_oracle_cm"] < 0.35 * rnd["v2v_oracle_cm"], (held, rnd)
+    assert all(r["gates"].values()), r["gates"]
+    curve = r["learning_curve"]
+    assert len(curve) >= 2
+    ks = [c["k_train"] for c in curve]
+    assert ks == sorted(ks) == list(gen.CURVE) + [len(gen.TRAIN_SEEDS)]
+    accs = [c["heldout"]["label_acc"] for c in curve]
+    assert accs[-1] >= max(accs[:-1]) - 0.1, accs

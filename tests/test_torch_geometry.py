@@ -72,3 +72,71 @@ def test_rodrigues_and_quaternion_match_jax():
     q = rng.randn(40, 4).astype(np.float32)
     np.testing.assert_allclose(so3.quaternion_to_matrix(torch.from_numpy(q)).numpy(),
                                np.asarray(jax_quat(jnp.asarray(q))), atol=1e-6)
+
+
+def _rand_rots(n, seed=0):
+    from scipy.spatial.transform import Rotation
+
+    return Rotation.random(n, random_state=seed).as_matrix().astype(np.float32)
+
+
+def test_so3_conversions_match_jax():
+    """The rest of `geometry/so3.py` against the JAX package on the same
+    inputs: the SVD projection (det < 0 cases included), the weighted
+    chordal mean, and the axis-angle, quaternion and 6D conversions;
+    within 1e-5 (f32 rounding on unit-scale entries), quaternions up to
+    their canonical sign."""
+    from etch_tpu.geometry import so3 as jso3
+
+    rng = np.random.RandomState(7)
+    C = rng.randn(64, 3, 3).astype(np.float32)
+    C[:8, :, 2] *= -1.0
+    R = _rand_rots(16)
+    aa = (rng.randn(16, 3) * 0.8).astype(np.float32)
+    aa[0] = 0.0                                      # the small-angle branch
+    Rs = _rand_rots(10, seed=3)[None].repeat(2, 0)
+    w = rng.rand(2, 10).astype(np.float32)
+    d6 = rng.randn(8, 6).astype(np.float32)
+    cases = [
+        ("project_to_so3_svd", (C,), 2e-5),
+        ("so3_mean", (Rs,), 1e-5),
+        ("so3_mean", (Rs, w), 1e-5),
+        ("rotation_matrix_to_axis_angle", (np.array(jso3.rodrigues(aa)),), 1e-5),
+        ("matrix_to_quaternion", (R,), 1e-5),
+        ("rotation_6d_to_matrix", (d6,), 1e-5),
+    ]
+    for name, args, atol in cases:
+        got = getattr(so3, name)(*(torch.from_numpy(a) for a in args)).numpy()
+        want = np.asarray(getattr(jso3, name)(*(jnp.asarray(a) for a in args)))
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, atol=atol, err_msg=name)
+
+
+def test_so3_statements_of_the_jax_tests():
+    """tests/test_so3.py's statements, on the port: the Davenport and SVD
+    projections agree, round trips return their inputs, and a one-hot
+    weighted mean selects its rotation."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.RandomState(7)
+    C = torch.from_numpy(rng.randn(64, 3, 3).astype(np.float32))
+    C[:8, :, 2] *= -1.0
+    np.testing.assert_allclose(so3.project_to_so3(C).numpy(),
+                               so3.project_to_so3_svd(C).numpy(), atol=2e-4)
+    aa = torch.from_numpy((np.random.RandomState(1).randn(16, 3) * 0.8).astype(np.float32))
+    np.testing.assert_allclose(so3.rotation_matrix_to_axis_angle(so3.rodrigues(aa)).numpy(),
+                               aa.numpy(), atol=1e-4)
+    R = torch.from_numpy(_rand_rots(16))
+    np.testing.assert_allclose(so3.quaternion_to_matrix(so3.matrix_to_quaternion(R)).numpy(),
+                               R.numpy(), atol=1e-5)
+    assert (so3.matrix_to_quaternion(R)[:, 0] >= 0).all()
+    np.testing.assert_allclose(
+        so3.rotation_6d_to_matrix(torch.cat([R[:, 0], R[:, 1]], -1)).numpy(), R.numpy(),
+        atol=1e-5)
+    Rs = torch.from_numpy(_rand_rots(5)[None])
+    w = torch.tensor([[0.0, 0, 10.0, 0, 0]])
+    np.testing.assert_allclose(so3.so3_mean(Rs, w)[0].numpy(), Rs[0, 2].numpy(), atol=1e-4)
+    base = _rand_rots(1)[0]
+    perturb = Rotation.from_rotvec(np.random.RandomState(3).randn(10, 3) * 0.05).as_matrix()
+    Rs = torch.from_numpy(np.einsum("nij,jk->nik", perturb, base)[None].astype(np.float32))
+    np.testing.assert_allclose(so3.so3_mean(Rs)[0].numpy(), base, atol=0.05)

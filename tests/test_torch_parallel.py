@@ -1,0 +1,188 @@
+"""Data parallelism of the PyTorch port: 2 gloo ranks on the CPU against 1.
+
+The port's statement of tests/test_parallel_equiv.py: the sharded step
+computes what the one-device step computes.  `tools/torch_parallel_check.py`
+trains `EtchConfig.tiny` (N=128, U-Net strides 2) on global batches of 8
+capsule clouds (`train/synthetic.py`, scaled by 0.5), once in this process
+and once in 2 spawned ranks (`parallel/mesh.py`, gloo, joined through a file
+in a temporary directory, so parallel test workers never collide), each
+rank keeping 4 clouds of every batch and starting from other weights, so
+that only `replicate` makes them agree.
+
+In the port each cloud's FPS, kNN and ball query run alone, at any batch
+size, so the only differences between 1 and 2 ranks are the orders of the
+sums: the BatchNorm statistics, the losses' means and the gradients'.
+Measured on an 8-core CPU host, 2 ranks against 1 (and, the port's own
+floor, 1 rank on the same batches with the clouds in reverse order):
+
+  |                                       | f32               | bf16          |
+  |---------------------------------------|-------------------|---------------|
+  | first step's loss, relative           | 5.7e-7            | 5.0e-4        |
+  | gradients, global norm-relative       | 5.7e-5 (5.8e-5)   | 0.034 (0.0077)|
+  | gradients, worst leaf / leaf scale    | 1.1e-3 (1.1e-3)   | 0.19 (0.021)  |
+  | BatchNorm running statistics          | 1.5e-5 (7.8e-6)   | 2.9e-4        |
+  | 3 SGD steps, deviation / travel       | 0.149 (0.156)     |               |
+
+The worst leaves and the trajectory are flax's E[x^2] - E[x]^2 in f32 at
+the deep U-Net levels amplifying reordered sums (tests/test_torch_train.py);
+in bf16, reordered statistics flip the rounding of BatchNorm outputs.  The
+limits below sit 3-35x above those and far below what the planted faults
+read, which each run in the same way and must fail:
+
+  - gradients summed, not averaged: every gradient off by 1.0 of its scale;
+  - BatchNorm of the rank's own shard: running statistics off by O(1),
+    gradients by several times their scale;
+  - the NaN guard on the rank's own loss: one rank sees a NaN loss and
+    skips the update, the other takes it, and the replicas part.
+
+JAX's tolerances (0.03 global, 0.7 in bf16; 2.0 of the travel) allow for
+its tie flips between tile shapes, which the port does not have.  The
+2-rank gradients against JAX's single-device ones: tests/test_torch_train.py;
+`cli/train_mixed.py`, alone and in two ranks: tests/test_torch_train_mixed.py.
+"""
+
+import numpy as np
+import pytest
+
+from etch_tpu_torch.train.state import ZERO_GRADIENT
+from etch_tpu_torch.train.synthetic import make_batch
+from etch_tpu_torch.utils.config import EtchConfig
+from tools import torch_parallel_check as check
+
+N, B, WORLD = 128, 8, 2
+SGD_LR, SGD_STEPS = 1e-2, 3
+# the first step's limits, f32 / bf16 (measured in the docstring's table)
+LOSS_RTOL = {False: 1e-5, True: 5e-3}
+GRAD_GLOBAL_LIMIT = {False: 1e-3, True: 0.1}
+GRAD_LEAF_LIMIT = 1e-2      # f32: a fault of one layer hides in the global norm
+BUFFER_LIMIT = {False: 1e-4, True: 1e-2}
+TRAJECTORY_LIMIT = 0.5      # f32, of the distance travelled; doubled gradients move it by about 1
+TRAJECTORY_LOSS_RTOL = 5e-3
+
+
+def _cfg(bf16=False):
+    return EtchConfig.tiny(num_point=N, batch_size=B, unet_strides=(1, 2, 2, 2, 2),
+                           use_bfloat16=bf16)
+
+
+def _batches(n, seed=0):
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        b = make_batch(rs, B, N)
+        b["hitpts"] = (b["hitpts"] * 0.5).astype(np.float32)
+        b["vectors"] = (b["vectors"] * 0.5).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def _nan_batch():
+    """A batch whose NaN loss lies in the second rank's shard alone."""
+    b = _batches(1, seed=7)[0]
+    b["vectors"][B - 1, :8] = np.nan
+    return b
+
+
+FAULTS = ("sum", "local_bn")
+
+
+def _run(world, bf16, batches, faults=(None,)):
+    return check.run(world, _cfg(bf16), batches, optimizer="sgd", lr=SGD_LR, faults=faults,
+                     threads=2, timeout=900)
+
+
+@pytest.fixture(scope="module")
+def f32():
+    """3 SGD steps, then a step whose loss is NaN on one rank only: one
+    rank, and two ranks; then the first step in the same two ranks with
+    each planted fault."""
+    batches = _batches(SGD_STEPS) + [_nan_batch()]
+    single = _run(1, False, batches)[0][0]
+    three = _run(1, False, batches[:SGD_STEPS])[0][0]
+    sound, *faulty = _run(WORLD, False, batches, (None,) + FAULTS)
+    return dict(single=single, three=three, ranks=sound, faults=dict(zip(FAULTS, faulty)))
+
+
+def _first_step(result):
+    return {k: result[k] for k in ("grads", "buffers")} | {"losses": result["losses"][:1]}
+
+
+def _assert_first_step(ranks, single, bf16):
+    got = check.compare([_first_step(r) | {"params": r["params"]} for r in ranks],
+                        _first_step(single) | {"params": single["params"]}, ZERO_GRADIENT)
+    print(f"{'bf16' if bf16 else 'f32'} first step, 2 ranks against 1: {got}")
+    assert got["loss"] <= LOSS_RTOL[bf16], got
+    assert got["grads_global"] <= GRAD_GLOBAL_LIMIT[bf16], got
+    if not bf16:
+        assert got["grads"] <= GRAD_LEAF_LIMIT, got
+    assert got["buffers"] <= BUFFER_LIMIT[bf16], got
+    assert got["ranks_apart"] == 0.0, got
+
+
+def test_one_step_f32(f32):
+    _assert_first_step(f32["ranks"], f32["single"], False)
+    # one all-reduce a BatchNorm (two in the w-chain's), again in each
+    # recomputed block and in the backward, one for the gradients, one for
+    # the losses
+    assert f32["ranks"][0]["collectives"] > 2
+
+
+def test_one_step_bf16():
+    batches = _batches(1)
+    _assert_first_step(_run(WORLD, True, batches)[0], _run(1, True, batches)[0][0], True)
+
+
+def test_sgd_trajectory_and_global_guard(f32):
+    """Three SGD steps follow the one-rank trajectory; then the NaN step is
+    skipped on both ranks, as on one: the parameters stay those after the
+    third step, equal on both ranks."""
+    p0 = _run(1, False, [])[0][0]["params"]
+    ranks, single, three = f32["ranks"], f32["single"], f32["three"]
+    dev = check.trajectory_deviation(p0, single, ranks)
+    print(f"3 SGD steps: deviation {dev:.3g} of the distance travelled")
+    assert dev <= TRAJECTORY_LIMIT, dev
+    for k in ranks[0]["losses"][SGD_STEPS - 1]:
+        a, b = ranks[0]["losses"][SGD_STEPS - 1][k], single["losses"][SGD_STEPS - 1][k]
+        assert abs(a - b) <= TRAJECTORY_LOSS_RTOL * abs(b), (k, a, b)
+    assert np.isnan(ranks[0]["losses"][-1]["all_loss"])
+    assert np.isnan(ranks[1]["losses"][-1]["all_loss"])
+    for n, v in single["params"].items():
+        assert (v == three["params"][n]).all(), n     # one rank skipped the NaN step
+        for r in ranks:
+            assert (r["params"][n] == ranks[0]["params"][n]).all(), n
+    assert check.trajectory_deviation(p0, three, ranks) <= TRAJECTORY_LIMIT
+
+
+@pytest.mark.parametrize("fault", ["sum", "local_bn"])
+def test_planted_fault_fails(f32, fault):
+    got = check.compare(f32["faults"][fault],
+                        f32["single"] | {"losses": f32["single"]["losses"][:1]}, ZERO_GRADIENT)
+    print(f"planted fault {fault}: {got}")
+    assert got["grads_global"] > 100 * GRAD_GLOBAL_LIMIT[False], got
+    assert got["grads"] > 10 * GRAD_LEAF_LIMIT, got
+    if fault == "local_bn":
+        assert got["buffers"] > 10 * BUFFER_LIMIT[False], got
+
+
+def test_planted_local_guard_fails():
+    ranks, = _run(WORLD, False, [_nan_batch()], ("local_guard",))
+    apart = max((ranks[1]["params"][n] - v).abs().max().item()
+                for n, v in ranks[0]["params"].items())
+    print(f"planted fault local_guard: the ranks' parameters {apart:.3g} apart")
+    assert np.isfinite(ranks[0]["losses"][0]["all_loss"])
+    assert np.isnan(ranks[1]["losses"][0]["all_loss"])
+    assert apart > 0.0
+
+
+def test_shard_batch_and_world_one():
+    from etch_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch
+
+    mesh = make_mesh("cpu")
+    assert (mesh.world_size, mesh.rank, mesh.group) == (1, 0, None)
+    b = {"x": np.arange(12).reshape(6, 2)}
+    np.testing.assert_array_equal(shard_batch(mesh, b)["x"], b["x"])
+    two = Mesh(rank=1, world_size=2)
+    np.testing.assert_array_equal(shard_batch(two, b)["x"], b["x"][3:])
+    with pytest.raises(ValueError, match="does not divide"):
+        shard_batch(Mesh(rank=0, world_size=4), b)
+

@@ -133,7 +133,11 @@ def test_port_imports_no_jax():
     "etch_tpu_torch.cli.generate_infopoints", "etch_tpu_torch.geometry.augment",
     "etch_tpu_torch.data.amass", "etch_tpu_torch.utils.colormap",
     "tools.torch_overfit_harness", "tools.torch_overfit_evidence",
-    "tools.torch_realdata_closed_loop"])
+    "tools.torch_realdata_closed_loop", "etch_tpu_torch.parallel.mesh",
+    "etch_tpu_torch.cli.train_mixed", "etch_tpu_torch.fit.adam", "etch_tpu_torch.fit.prior",
+    "etch_tpu_torch.fit.chamfer_refine", "etch_tpu_torch.ops.point_mesh",
+    "etch_tpu_torch.animate", "tools.torch_generalization_harness",
+    "tools.torch_generalization_evidence", "tools.torch_parallel_check"])
 def test_evaluation_and_tooling_import_no_jax_or_matplotlib(module):
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules "

@@ -179,8 +179,26 @@ def test_train_losses_match_jax(ref, port):
 
 
 def test_train_gradients_match_jax(ref, port):
+    _assert_gradients_match_jax(port["grads"][0], ref, port)
+
+
+def test_two_rank_gradients_match_jax(ref, port):
+    """The global gradient of 2 data-parallel gloo ranks, one cloud each
+    (`parallel/mesh.py`, tools/torch_parallel_check.py), against JAX's
+    one-device gradient of the batch of 2, at the tolerance above; the
+    losses it returns are the batch's, within 1e-5."""
+    from tools import torch_parallel_check
+
+    ranks = torch_parallel_check.run(2, ref["cfg"], [_batch()], optimizer="sgd", lr=0.0,
+                                     state_dict=ref["sd"], threads=2, timeout=900)[0]
+    for k, v in ref["runs"][0]["losses"].items():
+        np.testing.assert_allclose(ranks[0]["losses"][0][k], v, rtol=1e-5, err_msg=k)
+    _assert_gradients_match_jax(ranks[0]["grads"], ref, port)
+
+
+def _assert_gradients_match_jax(g_port, ref, port):
     g_jax, g_jax_sw = ref["grads"]
-    g_port, g_port_sw, g_port_nudged = port["grads"]
+    _, g_port_sw, g_port_nudged = port["grads"]
     assert set(g_port) == {k for k, _ in port["model"].named_parameters()}
     top = max(v.abs().max().item() for v in g_jax.values())
     bad = []
