@@ -15,6 +15,8 @@ from typing import Callable
 import torch
 from torch.func import jacfwd, vmap
 
+from etch_tpu_torch.utils import trace
+
 
 def levenberg_marquardt(residual_fn: Callable, x0: torch.Tensor, args: tuple,
                         num_steps: int, step_size: float, damping: float) -> torch.Tensor:
@@ -48,11 +50,14 @@ def _lm(residual_fn, x0, args, num_steps, step_size, damping, history=False):
     jac = vmap(jacfwd(with_aux, has_aux=True))
     x, norms = x0, []
     for _ in range(num_steps):
-        J, r = jac(x, *args)                                     # (B, R, P), (B, R)
+        trace.count("fit.lm_iterations")
+        with trace.span("fit.lm.jacobian"):
+            J, r = jac(x, *args)                                 # (B, R, P), (B, R)
         if history:
             norms.append(torch.linalg.norm(r, dim=-1))
-        Jt = J.transpose(-1, -2)
-        L = torch.linalg.cholesky(Jt @ J + damping * eye)
-        delta = torch.cholesky_solve(-(Jt @ r[..., None]), L)[..., 0]
-        x = x + step_size * delta
+        with trace.span("fit.lm.solve"):
+            Jt = J.transpose(-1, -2)
+            L = torch.linalg.cholesky(Jt @ J + damping * eye)
+            delta = torch.cholesky_solve(-(Jt @ r[..., None]), L)[..., 0]
+            x = x + step_size * delta
     return x, norms

@@ -19,6 +19,7 @@ from etch_tpu_torch.body.smpl import (MarkerSubModel, SMPLModel, marker_forward,
                                      marker_submodel, smpl_forward)
 from etch_tpu_torch.fit.lm import levenberg_marquardt
 from etch_tpu_torch.fit.markers import extract_markers
+from etch_tpu_torch.utils import trace
 
 NUM_POSE = 69  # 23 joints * 3
 
@@ -51,12 +52,14 @@ def fit_smpl_params(sub: MarkerSubModel, markers: torch.Tensor, valid: torch.Ten
         return fn
 
     x0 = markers.new_zeros((B, NUM_POSE + 2 + 6))
-    x_s0 = levenberg_marquardt(residual(2), x0, (markers, vmask), steps_stage0,
-                               lr_stage0, damping_stage0)
+    with trace.span("fit.lm0"):
+        x_s0 = levenberg_marquardt(residual(2), x0, (markers, vmask), steps_stage0,
+                                   lr_stage0, damping_stage0)
     pose, b2, orient, transl = _unpack(x_s0, 2)
     x1 = torch.cat([pose, b2, markers.new_zeros((B, num_betas - 2)), orient, transl], -1)
-    x_s1 = levenberg_marquardt(residual(num_betas), x1, (markers, vmask),
-                               steps_stage1, lr_stage1, damping_stage1)
+    with trace.span("fit.lm1"):
+        x_s1 = levenberg_marquardt(residual(num_betas), x1, (markers, vmask),
+                                   steps_stage1, lr_stage1, damping_stage1)
     pose, betas, orient, transl = _unpack(x_s1, num_betas)
     return {"pose": pose, "betas": betas, "global_orient": orient, "transl": transl}
 

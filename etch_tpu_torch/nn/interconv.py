@@ -47,6 +47,7 @@ import torch
 from etch_tpu_torch import _build
 from etch_tpu_torch.nn.bf16 import BF16, rnd
 from etch_tpu_torch.ops.grouping import group_points
+from etch_tpu_torch.utils import trace
 
 _SMEM_BYTES = 227 * 1024
 # both tensor-core bodies take up to 64 channels a block; a wider row runs as
@@ -287,7 +288,7 @@ def _plain_grads(ctx, g, plain, diff):
     need = ctx.needs_input_grad[:len(diff)]
     if not any(need):
         return (None,) * len(diff)
-    with torch.enable_grad():
+    with trace.span("interconv.backward"), torch.enable_grad():
         ins = [t.detach().requires_grad_(n) for t, n in zip(diff, need)]
         got = iter(torch.autograd.grad(plain(*ins), [t for t, n in zip(ins, need) if n], g))
     return tuple(next(got) if n else None for n in need)

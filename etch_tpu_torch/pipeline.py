@@ -13,7 +13,9 @@ core (or the anchor attention on the chunked route), the vector attention
 and the grouped confidence head.
 
 `run_batch` is the serving step on a batch of point clouds, `run_scan` the
-single-scan entry point (`cli/infer.py`).  The weights come from a
+single-scan entry point (`cli/infer.py`).  With `utils/trace.py` on, each
+`run_batch` is a request whose spans mark predict, markers, both LM stages
+and the SMPL forward.  The weights come from a
 checkpoint of the port's own format (`checkpoint_path`: a file or directory
 written by `train/checkpoint.py`'s `save_params` or `save_train_state`, or
 converted from an orbax one by `tools/orbax_to_torch.py`), from a state_dict
@@ -39,6 +41,7 @@ from etch_tpu_torch.fit.markers import extract_markers
 from etch_tpu_torch.fit.smpl_fit import fit_smpl_params
 from etch_tpu_torch.models.etch_net import EtchNet, init_params
 from etch_tpu_torch.train.checkpoint import restore_params, tree_signature
+from etch_tpu_torch.utils import trace
 from etch_tpu_torch.utils.config import EtchConfig
 
 GENDER_MODEL_PATHS = {
@@ -81,35 +84,38 @@ class InferencePipeline:
         """points (B, N, 3) -> the JAX `predict` dict: vectors, inner_points,
         part_labels, part_logits, confidences, direction, magnitude (tensors
         on the pipeline's device)."""
-        pts = torch.as_tensor(np.asarray(points, np.float32), device=self.device)
-        results = self.model(pts)
-        vectors = results["direction"] * results["magnitude"] / self.cfg.scale_magnitude
-        return {
-            "vectors": vectors,
-            "inner_points": pts - vectors,
-            "part_labels": torch.argmax(results["part_labels"], dim=-1),
-            "part_logits": results["part_labels"],
-            "confidences": results["confidences"],
-            "direction": results["direction"],
-            "magnitude": results["magnitude"],
-        }
+        with trace.span("pipeline.predict"):
+            pts = torch.as_tensor(np.asarray(points, np.float32), device=self.device)
+            results = self.model(pts)
+            vectors = results["direction"] * results["magnitude"] / self.cfg.scale_magnitude
+            return {
+                "vectors": vectors,
+                "inner_points": pts - vectors,
+                "part_labels": torch.argmax(results["part_labels"], dim=-1),
+                "part_logits": results["part_labels"],
+                "confidences": results["confidences"],
+                "direction": results["direction"],
+                "magnitude": results["magnitude"],
+            }
 
     @torch.no_grad()
     def fit(self, inner_points, part_labels, confidences):
         """Markers -> two-stage LM fit -> SMPL forward.  Returns (verts,
         params, markers, valid, joints), as the JAX `fit`."""
         as_t = lambda x: torch.as_tensor(x, device=self.device)
-        markers, valid = extract_markers(as_t(inner_points), as_t(part_labels),
-                                         as_t(confidences),
-                                         num_markers=len(self.marker_vids))
+        with trace.span("fit.markers"):
+            markers, valid = extract_markers(as_t(inner_points), as_t(part_labels),
+                                             as_t(confidences),
+                                             num_markers=len(self.marker_vids))
         params = fit_smpl_params(
             self.sub, markers, valid,
             steps_stage0=self.cfg.fit_steps_stage0,
             steps_stage1=self.cfg.fit_steps_stage1,
             lr_stage0=self.cfg.fit_lr_stage0, lr_stage1=self.cfg.fit_lr_stage1,
             num_betas=int(self.body_model.num_betas))
-        verts, joints = smpl_forward(self.body_model, params["betas"], params["pose"],
-                                     params["global_orient"], params["transl"])
+        with trace.span("fit.smpl"):
+            verts, joints = smpl_forward(self.body_model, params["betas"], params["pose"],
+                                         params["global_orient"], params["transl"])
         return verts, params, markers, valid, joints
 
     @torch.no_grad()
@@ -117,9 +123,10 @@ class InferencePipeline:
         """(B, N, 3) scan batch -> the JAX `run_batch` dict: vectors,
         inner_points, part_labels, confidences, markers, markers_valid,
         fit_params, verts, joints (tensors on the pipeline's device)."""
-        pred = self.predict(points)
-        verts, fitp, markers, valid, joints = self.fit(
-            pred["inner_points"], pred["part_labels"], pred["confidences"])
+        with trace.request("pipeline.run_batch"):
+            pred = self.predict(points)
+            verts, fitp, markers, valid, joints = self.fit(
+                pred["inner_points"], pred["part_labels"], pred["confidences"])
         return {
             "vectors": pred["vectors"], "inner_points": pred["inner_points"],
             "part_labels": pred["part_labels"], "confidences": pred["confidences"],

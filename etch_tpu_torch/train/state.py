@@ -30,6 +30,10 @@ guard's `nan_to_num` (a NaN on one rank zeroes that entry on every rank, as
 in the JAX global gradient); the losses the step returns are the global
 batch's means, and the guard decides on the global loss, so every rank
 takes or skips the same update.
+
+With `utils/trace.py` on, each step is a request whose spans mark the loss,
+the backward, the all-reduce, Adam and the guard, and the guard adds each
+skipped update to the device counter `step.skipped_updates`.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch
 from etch_tpu_torch.models.etch_net import EtchNet, init_params
 from etch_tpu_torch.parallel.mesh import Mesh, average_gradients, global_means
 from etch_tpu_torch.train.losses import compute_losses
+from etch_tpu_torch.utils import trace
 from etch_tpu_torch.utils.config import EtchConfig
 
 BATCH_KEYS = ("hitpts", "vectors", "confidences", "labels")
@@ -153,22 +158,27 @@ def _guarded_update(state: TrainState, loss: torch.Tensor) -> TrainState:
     the module docstring); NaN gradients on a finite-loss batch are zeroed."""
     opt = state.optimizer
     params = [p for group in opt.param_groups for p in group["params"]]
-    for p in params:
-        if p.grad is None:   # no path to the loss: a zero gradient, as in JAX
-            p.grad = torch.zeros_like(p)
-        torch.nan_to_num(p.grad, out=p.grad)
-    kept = []
-    for p in params:   # each parameter and its optimizer state (Adam: moments and step)
-        kept += [p] + [t for t in opt.state[p].values() if torch.is_tensor(t)]
-    if state.lr_schedule is not None:   # at the count of updates made so far
-        for group in opt.param_groups:
-            group["lr"].copy_(state.lr_schedule(opt.state[group["params"][0]]["step"]))
-    old = torch._foreach_mul(kept, 1.0)     # copies, bit for bit, in few launches
-    opt.step()
-    ok = torch.isfinite(loss)
-    for t, o in zip(kept, old):
-        torch.where(ok.to(t.device), t, o, out=t)
-    state.step += 1
+    with trace.span("step.guard"):
+        for p in params:
+            if p.grad is None:   # no path to the loss: a zero gradient, as in JAX
+                p.grad = torch.zeros_like(p)
+            torch.nan_to_num(p.grad, out=p.grad)
+        kept = []
+        for p in params:   # each parameter and its optimizer state (Adam: moments and step)
+            kept += [p] + [t for t in opt.state[p].values() if torch.is_tensor(t)]
+        old = torch._foreach_mul(kept, 1.0)     # copies, bit for bit, in few launches
+    with trace.span("step.adam"):
+        if state.lr_schedule is not None:   # at the count of updates made so far
+            for group in opt.param_groups:
+                group["lr"].copy_(state.lr_schedule(opt.state[group["params"][0]]["step"]))
+        opt.step()
+    with trace.span("step.guard"):
+        ok = torch.isfinite(loss)
+        for t, o in zip(kept, old):
+            torch.where(ok.to(t.device), t, o, out=t)
+        if trace.enabled():
+            trace.count_device("step.skipped_updates", ~ok)
+        state.step += 1
     return state
 
 
@@ -180,18 +190,22 @@ def batch_to(batch, device) -> Dict[str, torch.Tensor]:
 
 def _step(state: TrainState, batch, cfg: EtchConfig, targets):
     model, opt = state.model, state.optimizer
-    device = next(model.parameters()).device
-    b = batch_to(batch, device)
-    opt.zero_grad(set_to_none=True)
-    outputs = model(b["hitpts"], train=True)
-    confidences, labels = targets(outputs, b)
-    losses = compute_losses(cfg, outputs, b["vectors"], confidences, labels)
-    losses["all_loss"].backward()
-    losses = {k: v.detach() for k, v in losses.items()}
-    if state.mesh is not None and state.mesh.world_size > 1:
-        average_gradients(state.mesh, [p for g in opt.param_groups for p in g["params"]])
-        losses = global_means(state.mesh, losses)
-    _guarded_update(state, losses["all_loss"])
+    with trace.request("step"):
+        device = next(model.parameters()).device
+        b = batch_to(batch, device)
+        opt.zero_grad(set_to_none=True)
+        outputs = model(b["hitpts"], train=True)
+        with trace.span("step.loss"):
+            confidences, labels = targets(outputs, b)
+            losses = compute_losses(cfg, outputs, b["vectors"], confidences, labels)
+        with trace.span("step.backward"):
+            losses["all_loss"].backward()
+        losses = {k: v.detach() for k, v in losses.items()}
+        if state.mesh is not None and state.mesh.world_size > 1:
+            with trace.span("step.allreduce"):
+                average_gradients(state.mesh, [p for g in opt.param_groups for p in g["params"]])
+                losses = global_means(state.mesh, losses)
+        _guarded_update(state, losses["all_loss"])
     return state, losses
 
 
