@@ -15,6 +15,7 @@ ndarrays, as the JAX package's loader does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import pickle
 
 import numpy as np
@@ -137,13 +138,22 @@ def load_smpl(path: str, dtype=np.float32, device="cpu") -> SMPLModel:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _parent_index(parents: tuple, device: torch.device) -> torch.Tensor:
+    """parents[1:] as an int64 tensor on `device`, made once: indexing with
+    the host list would copy it to the card on every call."""
+    return torch.as_tensor(parents[1:], dtype=torch.int64, device=device)
+
+
 def _rigid_transforms(R: torch.Tensor, J: torch.Tensor, parents) -> torch.Tensor:
     """Forward kinematics with rest-pose removal.  R (B, 24, 3, 3), J
-    (B, 24, 3) -> A (B, 24, 4, 4) with v' = sum_k w_k A_k v_rest."""
-    parents = list(parents)
-    J_rel = torch.cat([J[:, :1], J[:, 1:] - J[:, parents[1:]]], dim=1)
+    (B, 24, 3) -> A (B, 24, 4, 4) with v' = sum_k w_k A_k v_rest.
+
+    No host-to-device copy, so the LM fit can capture it in a CUDA graph."""
+    parents = tuple(parents)
+    J_rel = torch.cat([J[:, :1], J[:, 1:] - J[:, _parent_index(parents, J.device)]], dim=1)
     bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)
-    bottom = bottom + torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    bottom[..., 3] = 1.0                                        # the row [0, 0, 0, 1]
     T_local = torch.cat([torch.cat([R, J_rel[..., None]], dim=-1), bottom], dim=-2)
     world = [T_local[:, 0]]
     for k in range(1, T_local.shape[1]):

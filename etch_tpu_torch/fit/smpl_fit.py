@@ -32,34 +32,41 @@ def _unpack(x, n_betas):
     return pose, betas, orient, transl
 
 
+def marker_residual(sub: MarkerSubModel, n_free_betas: int, num_betas: int = 10):
+    """The LM residual of a stage with the first `n_free_betas` betas free:
+    (x (P,), target (M, 3), mask (M, 1)) -> (M*3,)."""
+    def fn(x, target, mask):
+        pose, b_free, orient, transl = _unpack(x, n_free_betas)
+        betas = torch.cat([b_free, b_free.new_zeros(num_betas - n_free_betas)])
+        fwd = marker_forward(sub, betas[None], pose[None], orient[None], transl[None])[0]
+        return ((target - fwd) * mask).reshape(-1)
+    return fn
+
+
 def fit_smpl_params(sub: MarkerSubModel, markers: torch.Tensor, valid: torch.Tensor,
                     steps_stage0: int = 30, steps_stage1: int = 50,
                     lr_stage0: float = 0.5, lr_stage1: float = 0.2,
                     damping_stage0: float = 0.01, damping_stage1: float = 1e-3,
                     num_betas: int = 10):
     """markers (B, M, 3), valid (B, M) bool -> dict(pose (B, 69), betas
-    (B, 10), global_orient (B, 3), transl (B, 3))."""
+    (B, 10), global_orient (B, 3), transl (B, 3)).  On a CUDA device each
+    stage's Jacobian pass is captured once per submodel and batch shape."""
     B = markers.shape[0]
     vmask = valid.to(markers.dtype)[..., None]                    # (B, M, 1)
 
-    def residual(n_free_betas):
-        def fn(x, target, mask):
-            pose, b_free, orient, transl = _unpack(x, n_free_betas)
-            betas = torch.cat([b_free, b_free.new_zeros(num_betas - n_free_betas)])
-            fwd = marker_forward(sub, betas[None], pose[None], orient[None],
-                                 transl[None])[0]
-            return ((target - fwd) * mask).reshape(-1)
-        return fn
+    def stage(n_free, x, steps, lr, damping):
+        # id(sub): the cached graph keeps its residual, and so sub, alive
+        return levenberg_marquardt(marker_residual(sub, n_free, num_betas), x,
+                                   (markers, vmask), steps, lr, damping,
+                                   graph_key=(id(sub), n_free, num_betas))
 
     x0 = markers.new_zeros((B, NUM_POSE + 2 + 6))
     with trace.span("fit.lm0"):
-        x_s0 = levenberg_marquardt(residual(2), x0, (markers, vmask), steps_stage0,
-                                   lr_stage0, damping_stage0)
+        x_s0 = stage(2, x0, steps_stage0, lr_stage0, damping_stage0)
     pose, b2, orient, transl = _unpack(x_s0, 2)
     x1 = torch.cat([pose, b2, markers.new_zeros((B, num_betas - 2)), orient, transl], -1)
     with trace.span("fit.lm1"):
-        x_s1 = levenberg_marquardt(residual(num_betas), x1, (markers, vmask),
-                                   steps_stage1, lr_stage1, damping_stage1)
+        x_s1 = stage(num_betas, x1, steps_stage1, lr_stage1, damping_stage1)
     pose, betas, orient, transl = _unpack(x_s1, num_betas)
     return {"pose": pose, "betas": betas, "global_orient": orient, "transl": transl}
 

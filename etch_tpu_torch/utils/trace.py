@@ -36,7 +36,8 @@ SPAN_NAMES = (
     "fit.lm.jacobian", "fit.lm.solve", "fit.smpl",
     "step", "step.loss", "step.backward", "step.allreduce", "step.adam", "step.guard",
     "interconv.backward")
-COUNTER_NAMES = ("fit.lm_iterations", "step.skipped_updates")
+COUNTER_NAMES = ("fit.lm_iterations", "fit.lm.graph_captures", "fit.lm.graph_replays",
+                 "step.skipped_updates")
 
 _NULL = contextlib.nullcontext()
 _lock = threading.Lock()

@@ -340,6 +340,10 @@ def test_reduction_by_program_span():
 def test_metrics_on_the_reduction():
     red = report.reduce_events(BENCH + PROGRAM, report.SERVE_RANGES)
     assert report.lm_launches_per_iter(red, 2) == 1.5
+    counts = {"fit.lm.graph_replays": 160, "fit.lm.graph_captures": 2}
+    assert report.per_call(counts, "fit.lm.graph_replays", 2) == 80
+    assert report.per_call(counts, "fit.lm.graph_captures", 2) == 1
+    assert report.per_call(counts, "fit.lm_iterations", 2) == 0
     assert report.fit_syncs(red, 1) == 1
     assert report.interconv_backward_ms(red, 1) is None
     red["kernel_s"]["interconv.backward"] = 0.25

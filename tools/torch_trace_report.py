@@ -167,8 +167,9 @@ def span_ms(spans, calls):
 
 
 def lm_launches_per_iter(red, iterations):
-    """Launches under the `fit.lm*` spans of the profiled batch over its LM
-    iterations (`fit.lm_iterations`)."""
+    """Host launches under the `fit.lm*` spans of the profiled batch over its
+    LM iterations (`fit.lm_iterations`).  A CUDA graph's replay is one
+    launch (`cudaGraphLaunch`), whatever the kernels it holds."""
     n = sum(v for k, v in red["launches"].items() if k.startswith("fit.lm"))
     return n / iterations if iterations else None
 
@@ -176,6 +177,11 @@ def lm_launches_per_iter(red, iterations):
 def fit_syncs(red, calls):
     """Host synchronisations a batch under the `fit.*` spans."""
     return sum(v for k, v in red["syncs"].items() if k.startswith("fit.")) / calls
+
+
+def per_call(counts, name, calls):
+    """A counter's total over the calls it was read for."""
+    return counts.get(name, 0) / calls
 
 
 def interconv_backward_ms(red, calls):
@@ -189,6 +195,8 @@ METRICS = {"serve.lm_ms": ("fit.lm0", "fit.lm1"),
                                           "fit.lm.solve", "fit.lm_iterations"),
            "serve.fit_syncs": ("fit.markers", "fit.lm0", "fit.lm1", "fit.lm.jacobian",
                                "fit.lm.solve", "fit.smpl"),
+           "fit.lm.graph_replays": ("fit.lm.graph_replays",),
+           "fit.lm.graph_captures": ("fit.lm.graph_captures",),
            "train.interconv_backward_ms": ("interconv.backward",),
            "train.skipped_updates": ("step.skipped_updates",)}
 
@@ -315,11 +323,15 @@ def measure(cell_name, seed, seconds, device="cuda"):
                                "median": statistics.median(offsets) if offsets else None,
                                "worst": offsets[-1] if offsets else None}}
     if serving:
-        iters = p_counts.get("fit.lm_iterations", 0) / calls
+        iters = per_call(p_counts, "fit.lm_iterations", calls)
         out["metrics"] = {"serve.lm_ms": lm_ms(spans),
                           "serve.lm_launches_per_iter": lm_launches_per_iter(
                               red, p_counts.get("fit.lm_iterations", 0)),
                           "serve.fit_syncs": fit_syncs(red, calls),
+                          "fit.lm.graph_replays": per_call(p_counts, "fit.lm.graph_replays",
+                                                           calls),
+                          "fit.lm.graph_captures": per_call(p_counts, "fit.lm.graph_captures",
+                                                            calls),
                           "fit.lm_iterations": iters}
         fit_idle = sum(v for (b, _), v in red["gap_pairs"].items() if b == "serve.fit")
         named = sum(v for (b, p), v in red["gap_pairs"].items()
