@@ -28,6 +28,7 @@ from etch_tpu_torch.nn.epn import EPNBackbone, InterSO3Conv, IntraSO3Conv
 from etch_tpu_torch.nn.point_transformer import (BatchNorm, PointTransformerLayer,
                                                  PointTransformerSeg, unet_geometry)
 from etch_tpu_torch.ops import knn_interpolate
+from etch_tpu_torch.utils import trace
 from etch_tpu_torch.utils.config import EtchConfig, backbone_plan
 
 
@@ -116,22 +117,29 @@ class EtchNet(nn.Module):
         """hitpts (B, N, 3) -> dict with direction, magnitude, part_labels
         (logits) and confidences; `train` takes the training forward."""
         B, N, _ = hitpts.shape
-        xyz, feats = self.encoder(hitpts)                     # (B, K, A, C)
+        with trace.span("net.encoder"):
+            xyz, feats = self.encoder(hitpts)                 # (B, K, A, C)
         K, A, C = feats.shape[1:]
-        # 3-NN propagation back to the N points with squared-distance IDW
-        # (reference pointnet2_utils.py:45-74), on the (c, a)-ordered flatten
-        flat = feats.transpose(2, 3).reshape(B, K, C * A)
-        prop = knn_interpolate(xyz, hitpts, flat, k=3, use_sqrt=False)
-        point_equiv = prop.reshape(B, N, C, A)
-        point_inv = point_equiv.mean(-1)                      # (B, N, C)
+        with trace.span("net.propagate"):
+            # 3-NN propagation back to the N points with squared-distance IDW
+            # (reference pointnet2_utils.py:45-74), on the (c, a)-ordered flatten
+            flat = feats.transpose(2, 3).reshape(B, K, C * A)
+            prop = knn_interpolate(xyz, hitpts, flat, k=3, use_sqrt=False)
+            point_equiv = prop.reshape(B, N, C, A)
+            point_inv = point_equiv.mean(-1)                  # (B, N, C)
 
         geom = unet_geometry(hitpts, self.cfg.unet_strides, self.cfg.unet_nsamples)
-        logits, conf = self.confidence_encoder(hitpts, point_inv, geom, train)
+        with trace.span("net.confidence"):
+            logits, conf = self.confidence_encoder(hitpts, point_inv, geom, train)
+        with trace.span("net.direction"):
+            direction = self.direction_head(point_equiv.transpose(2, 3), train)
+        with trace.span("net.magnitude"):
+            magnitude = self.magnitude_encoder(hitpts, point_inv, geom, train)
         return {
             "part_labels": logits.float(),
             "confidences": conf.float(),
-            "direction": self.direction_head(point_equiv.transpose(2, 3), train),
-            "magnitude": self.magnitude_encoder(hitpts, point_inv, geom, train).float(),
+            "direction": direction,
+            "magnitude": magnitude.float(),
         }
 
 

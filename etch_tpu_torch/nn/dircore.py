@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from etch_tpu_torch import _build
 from etch_tpu_torch.nn.attention import attention_torch
 from etch_tpu_torch.nn.bf16 import BF16, mm, rnd
+from etch_tpu_torch.utils import trace
 
 # csrc/dircore.cu compiles these widths in (weights in shared memory);
 # narrower ones are zero-padded
@@ -288,6 +289,7 @@ def direction_core_cuda(tokens, params, num_heads: int):
         out = torch.empty((M, A), dtype=torch.float32, device=device)
         _build.launch("dircore", "etch_dircore_wide", device, _build.ptr(x), _build.ptr(w),
                       _build.ptr(f), _build.ptr(out), M, A, Ep, Vp, num_heads, hp, scale)
+        trace.count("dircore.wide_points", M)
         return out + params["br"].to(device=device, dtype=torch.float32)
     w, f = pack_weights(params, device)
     x = tokens if E == _E else _pad(tokens, M, A, _E).contiguous()

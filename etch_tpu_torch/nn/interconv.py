@@ -219,6 +219,8 @@ def interconv_t_cuda(xyz, centers, nbr, feats, rk, sigma: float, A: int):
     _build.launch(name, f"etch_{name}", device, _build.ptr(xyz),
                   _build.ptr(centers), _build.ptr(nbr), _build.ptr(rows),
                   _build.ptr(rk), _build.ptr(out), B, P, c, nn, A, K, Cp, float(sigma))
+    if Cp > _SLICE:
+        trace.count("interconv.slices", -(-Cp // _SLICE))
     return out if Cp == C else out[..., :C].contiguous()
 
 

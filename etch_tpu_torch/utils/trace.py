@@ -35,9 +35,10 @@ SPAN_NAMES = (
     "pipeline.run_batch", "pipeline.predict", "fit.markers", "fit.lm0", "fit.lm1",
     "fit.lm.jacobian", "fit.lm.solve", "fit.smpl",
     "step", "step.loss", "step.backward", "step.allreduce", "step.adam", "step.guard",
-    "interconv.backward")
+    "interconv.backward",
+    "net.encoder", "net.propagate", "net.confidence", "net.direction", "net.magnitude")
 COUNTER_NAMES = ("fit.lm_iterations", "fit.lm.graph_captures", "fit.lm.graph_replays",
-                 "step.skipped_updates")
+                 "step.skipped_updates", "dircore.wide_points", "interconv.slices")
 
 _NULL = contextlib.nullcontext()
 _lock = threading.Lock()

@@ -138,6 +138,44 @@ def test_etchnet_forward(models):
 
 
 DEEP_KW = dict(CFG_KW, epn_layer_num=3, epn_mlps=((8, 8), (8, 8), (16, 16)))
+# four blocks (--EPN_layer_num 4): at tiny widths, and at EPN's published
+# 32, 64, 128, 256 (the fourth block's radius and sigma, the E=256 tokens)
+FOUR_KW = dict(CFG_KW, epn_layer_num=4, epn_mlps=((8, 8), (8, 8), (16, 16), (16, 16)))
+FOUR_PUBLISHED_KW = dict(CFG_KW, batch_size=1, epn_layer_num=4, epn_mlps=None)
+
+
+def _deeper_epn_forward(kw, width, key, seed, B, direction_q99=2e-4):
+    """The port's encoder and whole forward against the JAX package's, the
+    same converted weights and points, at a depth and widths of `kw`; the
+    direction head alone on random features of the last block's width."""
+    jm = JaxEtchNet(cfg=JaxConfig.tiny(**kw))
+    v = jax.jit(lambda r, x: jm.init(r, x, train=False))(
+        jax.random.PRNGKey(key), jnp.zeros((1, N, 3)))
+    rng = np.random.RandomState(seed)
+    variables = {"params": _perturb(jax.tree_util.tree_map(np.asarray, v["params"]), rng),
+                 "batch_stats": _perturb(jax.tree_util.tree_map(np.asarray, v["batch_stats"]), rng)}
+    skip = variables["params"]["encoder"]["block0_conv0"]["skip_conv"]
+    skip["kernel"], skip["bias"] = np.zeros_like(skip["kernel"]), np.zeros_like(skip["bias"])
+    cfg = EtchConfig.tiny(**kw)
+    tm = EtchNet(cfg).eval()
+    tm.load_state_dict(flax_to_state_dict(variables["params"], variables["batch_stats"], cfg))
+    assert len(tm.encoder.names) == 2 * kw["epn_layer_num"]
+    pts = _points(5, B)
+    cloud, _ = jm.apply(variables, jnp.asarray(pts), method=lambda m, x: m.encoder(x))
+    xyz, feats = tm.encoder(torch.from_numpy(pts))
+    assert feats.shape[-1] == width
+    np.testing.assert_array_equal(xyz.numpy(), np.asarray(cloud.xyz))
+    _close(feats.numpy(), cloud.feats)
+    feat = np.random.RandomState(seed).randn(B, N, 60, width).astype(np.float32)
+    head = jm.apply(variables, jnp.asarray(feat),
+                    method=lambda m, f: m.direction_head(f, train=False))
+    _close(tm.direction_head(torch.from_numpy(feat)).numpy(), head)
+    ref = jm.apply(variables, jnp.asarray(pts), train=False)
+    out = tm(torch.from_numpy(pts))
+    for key in ("magnitude", "part_labels", "confidences"):
+        _close(out[key].numpy(), ref[key])
+    err = np.abs(out["direction"].numpy() - np.asarray(ref["direction"]))
+    assert np.quantile(err, 0.99) <= direction_q99 and err.max() <= 1e-2, err.max()
 
 
 @torch.no_grad()
@@ -145,26 +183,24 @@ def test_deeper_epn_forward():
     """epn_layer_num=3 (the reference CLI's --EPN_layer_num) with three EPN
     blocks of tiny widths: the third block, the wider direction tokens and
     the U-Nets' wider point features are the same model in both packages."""
-    jm = JaxEtchNet(cfg=JaxConfig.tiny(**DEEP_KW))
-    v = jax.jit(lambda r, x: jm.init(r, x, train=False))(
-        jax.random.PRNGKey(1), jnp.zeros((1, N, 3)))
-    rng = np.random.RandomState(9)
-    variables = {"params": _perturb(jax.tree_util.tree_map(np.asarray, v["params"]), rng),
-                 "batch_stats": _perturb(jax.tree_util.tree_map(np.asarray, v["batch_stats"]), rng)}
-    skip = variables["params"]["encoder"]["block0_conv0"]["skip_conv"]
-    skip["kernel"], skip["bias"] = np.zeros_like(skip["kernel"]), np.zeros_like(skip["bias"])
-    cfg = EtchConfig.tiny(**DEEP_KW)
-    tm = EtchNet(cfg).eval()
-    tm.load_state_dict(flax_to_state_dict(variables["params"], variables["batch_stats"], cfg))
-    pts = _points(5, 2)
-    cloud, _ = jm.apply(variables, jnp.asarray(pts), method=lambda m, x: m.encoder(x))
-    xyz, feats = tm.encoder(torch.from_numpy(pts))
-    assert feats.shape[-1] == 16
-    np.testing.assert_array_equal(xyz.numpy(), np.asarray(cloud.xyz))
-    _close(feats.numpy(), cloud.feats)
-    ref = jm.apply(variables, jnp.asarray(pts), train=False)
-    out = tm(torch.from_numpy(pts))
-    for key in ("magnitude", "part_labels", "confidences"):
-        _close(out[key].numpy(), ref[key])
-    err = np.abs(out["direction"].numpy() - np.asarray(ref["direction"]))
-    assert np.quantile(err, 0.99) <= 2e-4 and err.max() <= 1e-2, err.max()
+    _deeper_epn_forward(DEEP_KW, 16, key=1, seed=9, B=2)
+
+
+@torch.no_grad()
+def test_four_block_epn_forward():
+    """epn_layer_num=4 with four EPN blocks of tiny widths (8, 8, 16, 16):
+    the fourth block's sampling, ball radius and kernel sigma, and the
+    network after it, are the same model in both packages."""
+    _deeper_epn_forward(FOUR_KW, 16, key=2, seed=10, B=2)
+
+
+@torch.no_grad()
+def test_four_block_epn_forward_published_widths():
+    """epn_layer_num=4 at EPN's published widths 32, 64, 128, 256: the 128-
+    and 256-channel blocks and the direction head on E=256 tokens (the tiny
+    head's two heads of 128) against the JAX package, one scan.  The
+    head alone is held at 1e-4 as everywhere; end to end the direction takes
+    1e-3 for 99% of the points, since eight convs of up to 256 channels carry
+    more rounding into the SO(3) projection of a nearly cancelling chordal
+    mean (2.8e-4 read here, against 2e-4 at tiny widths)."""
+    _deeper_epn_forward(FOUR_PUBLISHED_KW, 256, key=3, seed=11, B=1, direction_q99=1e-3)

@@ -58,18 +58,23 @@ def _points(seed):
     return np.stack([r * np.cos(th), r * np.sin(th), z], -1).astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def pipes():
-    ref = jax_build(JaxConfig.tiny(**CFG_KW), _markerset(), allow_synthetic_body=True)
+def _pipes(kw):
+    """(JAX pipeline, the port's pipeline on its converted weights)."""
+    ref = jax_build(JaxConfig.tiny(**kw), _markerset(), allow_synthetic_body=True)
     params = jax.tree_util.tree_map(np.array, ref.params)
     stats = jax.tree_util.tree_map(np.array, ref.batch_stats)
     skip = params["encoder"]["block0_conv0"]["skip_conv"]
     skip["kernel"], skip["bias"] = np.zeros_like(skip["kernel"]), np.zeros_like(skip["bias"])
     ref = JaxPipeline(ref.cfg, params, stats, ref.body_model, ref.marker_vids)
-    port = build_pipeline(EtchConfig.tiny(**CFG_KW), _markerset(),
-                          state_dict=flax_to_state_dict(params, stats, EtchConfig.tiny(**CFG_KW)),
+    port = build_pipeline(EtchConfig.tiny(**kw), _markerset(),
+                          state_dict=flax_to_state_dict(params, stats, EtchConfig.tiny(**kw)),
                           allow_synthetic_body=True, device="cpu")
     return ref, port
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    return _pipes(CFG_KW)
 
 
 def _close(out, ref, atol):
@@ -80,8 +85,19 @@ def _close(out, ref, atol):
 
 
 def test_run_batch_matches_jax(pipes):
-    ref_pipe, port = pipes
-    pts = _points(0)
+    _run_batch_matches(*pipes, _points(0))
+
+
+def test_four_block_run_batch_matches_jax():
+    """run_batch with EPN's four blocks (--EPN_layer_num 4, tiny widths 8, 8,
+    16, 16): the network's outputs, labels and markers as at two blocks."""
+    ref_pipe, port = _pipes(dict(CFG_KW, epn_layer_num=4,
+                                 epn_mlps=((8, 8), (8, 8), (16, 16), (16, 16))))
+    assert len(port.model.encoder.names) == 8
+    _run_batch_matches(ref_pipe, port, _points(1))
+
+
+def _run_batch_matches(ref_pipe, port, pts):
     ref = jax.tree_util.tree_map(np.asarray, ref_pipe.run_batch(pts))
     out = port.run_batch(pts)
     assert set(out) == set(ref)

@@ -138,6 +138,8 @@ def test_run_batch_span_tree(pipe):
     kids = _tree(spans)
     assert kids["pipeline.run_batch"] == ["pipeline.predict", "fit.markers", "fit.lm0",
                                           "fit.lm1", "fit.smpl"]
+    assert kids["pipeline.predict"] == ["net.encoder", "net.propagate", "net.confidence",
+                                        "net.direction", "net.magnitude"]
     assert kids["fit.lm0"] == ["fit.lm.jacobian", "fit.lm.solve"] * STEPS0
     assert kids["fit.lm1"] == ["fit.lm.jacobian", "fit.lm.solve"] * STEPS1
     assert counts == {"fit.lm_iterations": STEPS0 + STEPS1}
@@ -170,8 +172,9 @@ def test_train_step_span_tree():
     assert spans[0][0] == "step" and spans[0][2] is None
     assert {s[1] for s in spans} == {spans[0][1]}
     kids = _tree(spans)
-    assert kids["step"] == ["step.loss", "step.backward", "step.guard", "step.adam",
-                            "step.guard"]
+    assert kids["step"] == ["net.encoder", "net.propagate", "net.confidence", "net.direction",
+                            "net.magnitude", "step.loss", "step.backward", "step.guard",
+                            "step.adam", "step.guard"]
     assert set(kids["step.backward"]) == {"interconv.backward"}
     assert counts == {"step.skipped_updates": 0}
     assert {s[0] for s in spans} <= set(trace.SPAN_NAMES)
@@ -348,6 +351,14 @@ def test_metrics_on_the_reduction():
     assert report.interconv_backward_ms(red, 1) is None
     red["kernel_s"]["interconv.backward"] = 0.25
     assert report.interconv_backward_ms(red, 2) == 125.0
+    assert report.net_ms(red, 1) == dict.fromkeys(report.NET_SPANS)
+    red["kernel_s"].update({"net.encoder": 0.03, "net.direction": 0.08})
+    assert report.net_ms(red, 2) == {"net.encoder": 15.0, "net.propagate": None,
+                                     "net.confidence": None, "net.direction": 40.0,
+                                     "net.magnitude": None}
+    counts = {"dircore.wide_points": 320000, "interconv.slices": 20}
+    assert report.per_call(counts, "dircore.wide_points", 2) == 160000
+    assert report.per_call(counts, "interconv.slices", 2) == 10
     spans = [("pipeline.run_batch", 1, None, 0, 10 ** 7), ("fit.lm0", 1, 0, 0, 2 * 10 ** 6),
              ("fit.lm1", 1, 0, 2 * 10 ** 6, 5 * 10 ** 6)]
     assert report.lm_ms(spans) == 5.0
@@ -374,3 +385,14 @@ def test_benchmark_labels_unmoved_by_program_spans():
 def test_every_name_a_metric_reads_is_the_programs(metric):
     for name in report.METRICS[metric]:
         assert name in trace.SPAN_NAMES + trace.COUNTER_NAMES, name
+
+
+def test_net_spans_label_the_forward_kernels():
+    """Kernels launched inside a `net.*` span count to it, not to the
+    `pipeline.predict` around it, and `net_ms` reads them a batch."""
+    net = [Ev("net.encoder", "CPU", 5, 100), Ev("net.direction", "CPU", 150, 280)]
+    red = report.reduce_events(BENCH + PROGRAM + net, report.SERVE_RANGES)
+    assert red["launches"]["net.encoder"] == 1 and "pipeline.predict" not in red["launches"]
+    assert red["kernel_s"]["net.encoder"] == pytest.approx(100e-9)
+    assert report.net_ms(red, 1)["net.encoder"] == pytest.approx(100e-6)
+    assert report.net_ms(red, 1)["net.direction"] is None

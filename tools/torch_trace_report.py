@@ -15,9 +15,12 @@ and the benchmark's own hook ranges opened as a `perfbench/run.py --trace 1`
 run opens them.  `reduce_events` reduces the profile twice: labelled by the
 innermost benchmark range, as `perfbench/trace.py::Profile` labels it, and
 by the innermost program span; idle gaps by the innermost range of either
-set.  The numbers the program's spans give (`METRICS`) sit beside the
-benchmark's own reading of the same batch, and beside the offset of each
-span's in-memory start from its profiler range's (the two clocks).
+set.  The numbers the program's spans give (`METRICS`: among them the
+device ms a batch of each `net.*` span of the forward, and the points the
+wide direction core served and the contractions' 64-channel slices a
+batch) sit beside the benchmark's own reading of the same batch, and
+beside the offset of each span's in-memory start from its profiler
+range's (the two clocks).
 Prints the card's name and power limit, then one JSON line a seed, and
 writes them all to `--out`.
 """
@@ -43,6 +46,7 @@ TRAIN_RANGES = ("train.step", "train.forward", "train.backward", "train.optim", 
 SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy")
 LAUNCH = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch")
 FIT_IDLE = ("fit.lm.jacobian", "fit.lm.solve", "fit.markers", "fit.smpl", "pipeline.predict")
+NET_SPANS = tuple(n for n in trace.SPAN_NAMES if n.startswith("net."))
 
 
 def _ns(e, which):
@@ -190,6 +194,13 @@ def interconv_backward_ms(red, calls):
     return s * 1e3 / calls if s else None
 
 
+def net_ms(red, calls):
+    """Device ms a batch of the kernels launched inside each `net.*` span of
+    the network forward (None for a span that launched none)."""
+    return {n: red["kernel_s"][n] * 1e3 / calls if red["kernel_s"].get(n) else None
+            for n in NET_SPANS}
+
+
 METRICS = {"serve.lm_ms": ("fit.lm0", "fit.lm1"),
            "serve.lm_launches_per_iter": ("fit.lm0", "fit.lm1", "fit.lm.jacobian",
                                           "fit.lm.solve", "fit.lm_iterations"),
@@ -197,6 +208,9 @@ METRICS = {"serve.lm_ms": ("fit.lm0", "fit.lm1"),
                                "fit.lm.solve", "fit.smpl"),
            "fit.lm.graph_replays": ("fit.lm.graph_replays",),
            "fit.lm.graph_captures": ("fit.lm.graph_captures",),
+           "serve.net_ms": NET_SPANS,
+           "dircore.wide_points": ("dircore.wide_points",),
+           "interconv.slices": ("interconv.slices",),
            "train.interconv_backward_ms": ("interconv.backward",),
            "train.skipped_updates": ("step.skipped_updates",)}
 
@@ -332,7 +346,11 @@ def measure(cell_name, seed, seconds, device="cuda"):
                                                            calls),
                           "fit.lm.graph_captures": per_call(p_counts, "fit.lm.graph_captures",
                                                             calls),
-                          "fit.lm_iterations": iters}
+                          "fit.lm_iterations": iters,
+                          "serve.net_ms": net_ms(red, calls),
+                          "dircore.wide_points": per_call(p_counts, "dircore.wide_points",
+                                                          calls),
+                          "interconv.slices": per_call(p_counts, "interconv.slices", calls)}
         fit_idle = sum(v for (b, _), v in red["gap_pairs"].items() if b == "serve.fit")
         named = sum(v for (b, p), v in red["gap_pairs"].items()
                     if b == "serve.fit" and p in FIT_IDLE)
