@@ -34,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from etch_tpu_torch import _build
 from etch_tpu_torch.nn.attention import attention_torch
-from etch_tpu_torch.nn.bf16 import BF16, mm, rnd
+from etch_tpu_torch.nn.bf16 import BF16, rnd, wide_mm
 from etch_tpu_torch.utils import trace
 
 # csrc/dircore.cu compiles these widths in (weights in shared memory);
@@ -73,15 +73,15 @@ def direction_core_torch(tokens, params, num_heads: int):
     scale = 1.0 / math.sqrt(h.shape[-1] // num_heads)
     n_layers = _num_layers(params)
     for l in range(n_layers):
-        q = rnd(mm(h, params[f"wq{l}"], bf16) * scale, bf16)
-        k = rnd(mm(h, params[f"wk{l}"], bf16), bf16)
-        v = rnd(mm(h, params[f"wv{l}"], bf16), bf16)
+        q = rnd(wide_mm(h, params[f"wq{l}"], bf16) * scale, bf16)
+        k = rnd(wide_mm(h, params[f"wk{l}"], bf16), bf16)
+        v = rnd(wide_mm(h, params[f"wv{l}"], bf16), bf16)
         att = attention_torch(q.to(tokens.dtype), k.to(tokens.dtype),
                               v.to(tokens.dtype), num_heads)
-        y = mm(att, params[f"wc{l}"], bf16) + params[f"bc{l}"]
+        y = wide_mm(att, params[f"wc{l}"], bf16) + params[f"bc{l}"]
         h = rnd(y if l == n_layers - 1 else h + y, bf16)
-    h = rnd(torch.relu(mm(h, params["wm0"], bf16) + params["bm0"]), bf16)
-    h = mm(h, params["wm1"], bf16) + params["bm1"]
+    h = rnd(torch.relu(wide_mm(h, params["wm0"], bf16) + params["bm0"]), bf16)
+    h = wide_mm(h, params["wm1"], bf16) + params["bm1"]
     return (h @ params["wr"])[..., 0] + params["br"]
 
 

@@ -128,7 +128,7 @@ class InterSO3Conv(nn.Module):
         else:
             t = interconv_t(xyz, ctr, idx, flat, self.rk, self.sigma, A)
         # (K*C -> Co) projection, W row index k*C + c (K-major)
-        return mm(t.reshape(B, c, A, self.K * C), W, bf16) + self.bias
+        return mm(t.reshape(B, c, A, self.K * C), W, bf16, self.bias)
 
 
 class IntraSO3Conv(nn.Module):
@@ -149,7 +149,7 @@ class IntraSO3Conv(nn.Module):
         if bf16:   # round before the 12x gather: the same values, 1/12 the work
             feats = feats.to(self.compute_dtype)
         g = feats[:, :, self.intra_idx, :]                         # (B,P,A,12,C)
-        return mm(g.reshape(B, P, A, -1), self.W, bf16) + self.bias
+        return mm(g.reshape(B, P, A, -1), self.W, bf16, self.bias)
 
 
 class SeparableSO3ConvBlock(nn.Module):

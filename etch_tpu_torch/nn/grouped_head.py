@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from etch_tpu_torch import _build
-from etch_tpu_torch.nn.bf16 import BF16, mm, rnd
+from etch_tpu_torch.nn.bf16 import BF16, rnd, wide_mm
 
 _ROWS = 8192
 _TILE = 128    # csrc/grouped_head.cu runs groups and depths in 128-column tiles
@@ -35,7 +35,7 @@ def grouped_head_torch(h, w0, b0, wg, bg):
     wgr = rnd(wg, bf16)
     outs = []
     for s in range(0, h.shape[0], _ROWS):
-        z = rnd(torch.relu(mm(h[s:s + _ROWS], w0, bf16) + b0), bf16).reshape(-1, k, c0)
+        z = rnd(torch.relu(wide_mm(h[s:s + _ROWS], w0, bf16) + b0), bf16).reshape(-1, k, c0)
         outs.append(torch.einsum("rkc,kc->rk", z, wgr) + bg)
     return torch.cat(outs)
 

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from etch_tpu_torch import _build
-from etch_tpu_torch.nn.bf16 import BF16, mm, rnd
+from etch_tpu_torch.nn.bf16 import BF16, rnd, wide_mm
 from etch_tpu_torch.ops.grouping import group_points
 
 
@@ -48,8 +48,8 @@ def vector_attention_torch(xq, xk, xv, idx, pe, a0, w0, a1, w1, b1):
     gv = group_points(xv, idx).reshape(R, ns, c).float()
     pe = pe.float()
     w = rnd(torch.relu((gk - xq.float()[:, None, :] + pe) * a0[0] + a0[1]), bf16)
-    z = rnd(torch.relu(mm(w, w0, bf16) * a1[0] + a1[1]), bf16)
-    s = torch.softmax(mm(z, w1, bf16) + b1, dim=1)               # over ns
+    z = rnd(torch.relu(wide_mm(w, w0, bf16) * a1[0] + a1[1]), bf16)
+    s = torch.softmax(wide_mm(z, w1, bf16) + b1, dim=1)          # over ns
     v = (gv + pe).reshape(R, ns, c // cs, cs)
     return (v * s[:, :, None, :]).sum(1).reshape(R, c)
 

@@ -38,7 +38,8 @@ SPAN_NAMES = (
     "interconv.backward",
     "net.encoder", "net.propagate", "net.confidence", "net.direction", "net.magnitude")
 COUNTER_NAMES = ("fit.lm_iterations", "fit.lm.graph_captures", "fit.lm.graph_replays",
-                 "step.skipped_updates", "dircore.wide_points", "interconv.slices")
+                 "step.skipped_updates", "dircore.wide_points", "interconv.slices",
+                 "bf16.tc_products")
 
 _NULL = contextlib.nullcontext()
 _lock = threading.Lock()

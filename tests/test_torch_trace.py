@@ -356,9 +356,11 @@ def test_metrics_on_the_reduction():
     assert report.net_ms(red, 2) == {"net.encoder": 15.0, "net.propagate": None,
                                      "net.confidence": None, "net.direction": 40.0,
                                      "net.magnitude": None}
-    counts = {"dircore.wide_points": 320000, "interconv.slices": 20}
+    counts = {"dircore.wide_points": 320000, "interconv.slices": 20, "bf16.tc_products": 28}
     assert report.per_call(counts, "dircore.wide_points", 2) == 160000
     assert report.per_call(counts, "interconv.slices", 2) == 10
+    assert report.per_call(counts, "bf16.tc_products", 2) == 14
+    assert report.per_call({}, "bf16.tc_products", 2) == 0
     spans = [("pipeline.run_batch", 1, None, 0, 10 ** 7), ("fit.lm0", 1, 0, 0, 2 * 10 ** 6),
              ("fit.lm1", 1, 0, 2 * 10 ** 6, 5 * 10 ** 6)]
     assert report.lm_ms(spans) == 5.0

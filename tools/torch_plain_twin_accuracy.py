@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""How accurate a bf16 serving step is on the card, with its kernels and with
+"""How accurate a bf16 serving step is on the card, with its kernels, with
 its plain twin (every floating-point kernel replaced by its plain version on
-the card's tensors), against the CPU's bf16 step, each against the same
+the card's tensors) and widened (the kernels, with every `nn/bf16.py::mm`
+product an f32 product of bf16-rounded operands in place of the card's bf16
+tensor-core product), against the CPU's bf16 step, each against the same
 weights served in f32 on the CPU.  Run it from the repository's root on a
 machine with one CUDA card:
 
@@ -12,18 +14,19 @@ For each configuration (at N=1024, B=2, random weights) and each input seed
 (`chip_smoke.capsule_clouds`) it prints the card's errors over the CPU's
 (`chip_smoke.bf16_step_accuracy`: vector lengths and confidences, median
 relative / max; the directions' median angle; part labels off the f32 ones)
-for the kernels and for the twin, then the same over all seeds pooled (the
-steps' outputs concatenated along the batch).  Where the twin itself reads
-above AS_ACCURATE_STEP on a seed, the card's plain arithmetic alone misses the
-CPU's bf16 step there, whatever the kernels do.
+for the kernels, the twin and the widened step, then the same over all seeds
+pooled (the steps' outputs concatenated along the batch).  Where the twin
+itself reads above AS_ACCURATE_STEP on a seed, the card's plain arithmetic
+alone misses the CPU's bf16 step there, whatever the kernels do.
 
 --swaps serves the first seed once more for each kernel replaced alone by its
-plain version.  --replay feeds every module of the listed classes the input
-the CPU's bf16 step gave it, on the card with the kernels and with the twin
-and on the CPU, and prints each module's error over the CPU's against the f32
-module on the same input: a module that departs from the CPU, and whether
-its kernels or its plain operations do, without the flips of the modules
-before it."""
+plain version, and for each module's `mm` products alone widened.  --replay
+feeds every module of the listed classes the input the CPU's bf16 step gave
+it, on the card with the kernels, with the twin and widened, and on the CPU,
+and prints each module's error over the CPU's against the f32 module on the
+same input: a module that departs from the CPU, and whether its kernels,
+its plain operations or its tensor-core products do, without the flips of
+the modules before it."""
 
 import argparse
 import contextlib
@@ -45,6 +48,7 @@ CONFIGS = {
     "6-12": dict(epn_mlps=((6, 12), (64, 64)), use_bfloat16=True),
     "1024-planes": dict(unet_planes_magnitude=(64, 128, 256, 512, 1024), use_bfloat16=True),
     "combined": chip_smoke.REPAIRED_9,
+    "last-block-768": dict(epn_mlps=((32, 32), (768, 768)), use_bfloat16=True),
 }
 # the floating-point kernels' wrappers, by module: the twin replaces each
 # `<name>_cuda` by its `<name>_torch`
@@ -54,7 +58,10 @@ KERNELS = (("etch_tpu_torch.nn.interconv",
            ("etch_tpu_torch.nn.attention", ("attention",)),
            ("etch_tpu_torch.nn.vector_attention", ("vector_attention",)),
            ("etch_tpu_torch.nn.grouped_head", ("grouped_head",)))
+# the modules whose products go through `nn/bf16.py::mm` on the card
+MM_MODULES = ("etch_tpu_torch.nn.epn", "etch_tpu_torch.nn.point_transformer")
 # the modules --replay feeds one at a time
+LABELS = ("kernels", "twin", "widened")   # the card's three forms of the step
 REPLAY = ("InterSO3Conv", "IntraSO3Conv", "SeparableSO3ConvBlock", "EPNBackbone",
           "PointTransformerLayer", "PointTransformerBlock", "TransitionDown", "TransitionUp",
           "Dense", "BatchNorm", "PointTransformerSeg", "DirectionHead")
@@ -76,6 +83,22 @@ def plain(names=None):
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
+def widened(names=MM_MODULES):
+    """Within the block the modules named take every `mm` product in its
+    widened form (`nn/bf16.py::wide_mm`); restored on exit."""
+    from etch_tpu_torch.nn.bf16 import wide_mm
+    mods = [importlib.import_module(n) for n in names]
+    saved = [mod.mm for mod in mods]
+    for mod in mods:
+        mod.mm = wide_mm
+    try:
+        yield
+    finally:
+        for mod, fn in zip(mods, saved):
+            mod.mm = fn
 
 
 def build(cfg, device):
@@ -137,8 +160,8 @@ def moved(x, device, dtype=None):
 
 
 def replay(cfg, pts):
-    """Each module's error on the card (kernels, twin) over the CPU's, on the
-    input the CPU's bf16 step gave it."""
+    """Each module's error on the card (kernels, twin, widened) over the
+    CPU's, on the input the CPU's bf16 step gave it."""
     cpu, gpu = build(cfg, "cpu"), build(cfg, "cuda")
     f32 = build(cfg.replace(use_bfloat16=False), "cpu")
     mods = {n: m for n, m in cpu.model.named_modules() if type(m).__name__ in REPLAY}
@@ -163,7 +186,8 @@ def replay(cfg, pts):
             ref = [t.float() for t in tensors(fmods[name](*moved(args, "cpu", torch.float32),
                                                            **moved(kwargs, "cpu", torch.float32)))]
             res = {}
-            for label, ctx in (("kernels", contextlib.nullcontext()), ("twin", plain())):
+            for label, ctx in (("kernels", contextlib.nullcontext()), ("twin", plain()),
+                               ("widened", widened())):
                 with ctx:
                     got = tensors(gmods[name](*moved(args, "cuda"), **moved(kwargs, "cuda")))
                 res[label] = [t.detach().float().cpu() for t in got]
@@ -174,7 +198,7 @@ def replay(cfg, pts):
                 ec = (c - r).abs()
                 mc, xc = chip_smoke.median_rel(ec, r), ec.max().item()
                 row = []
-                for label in ("kernels", "twin"):
+                for label in LABELS:
                     eg = (res[label][i] - r).abs()
                     mg, xg = chip_smoke.median_rel(eg, r), eg.max().item()
                     row.append(f"{label} {mg / mc if mc else float('nan'):.3f} / "
@@ -198,7 +222,7 @@ def main():
     seeds = [int(s) for s in args.seeds.split(",")]
     for name in args.configs.split(","):
         cfg = chip_smoke.deep_config(CONFIGS[name])
-        runs = {"cpu": [], "f32": [], "kernels": [], "twin": []}
+        runs = {"cpu": [], "f32": [], **{label: [] for label in LABELS}}
         for seed in seeds:
             t0 = time.perf_counter()
             pts = chip_smoke.capsule_clouds(cfg.batch_size, cfg.num_point, seed=seed)
@@ -207,7 +231,9 @@ def main():
             runs["kernels"].append(serve(cfg, "cuda", pts))
             with plain():
                 runs["twin"].append(serve(cfg, "cuda", pts))
-            for label in ("kernels", "twin"):
+            with widened():
+                runs["widened"].append(serve(cfg, "cuda", pts))
+            for label in LABELS:
                 print(f"{name:18s} seed {seed} {label:8s} over the CPU: "
                       f"{ratios(runs[label][-1], runs['cpu'][-1], runs['f32'][-1])}")
             print(f"{name:18s} seed {seed} kernels over the twin: "
@@ -216,7 +242,7 @@ def main():
         if len(seeds) > 1:
             for k in range(2, len(seeds) + 1):
                 pool = {lab: pooled(r[:k]) for lab, r in runs.items()}
-                for label in ("kernels", "twin"):
+                for label in LABELS:
                     print(f"{name:18s} seeds {seeds[:k]} pooled, {label:8s} over the CPU: "
                           f"{ratios(pool[label], pool['cpu'], pool['f32'])}", flush=True)
         if args.swaps:
@@ -227,6 +253,11 @@ def main():
                         out = serve(cfg, "cuda", pts)
                     print(f"{name:18s} seed {seeds[0]} plain {kernel} alone, over the CPU: "
                           f"{ratios(out, runs['cpu'][0], runs['f32'][0])}", flush=True)
+            for mod_name in MM_MODULES:
+                with widened((mod_name,)):
+                    out = serve(cfg, "cuda", pts)
+                print(f"{name:18s} seed {seeds[0]} {mod_name} widened alone, over the CPU: "
+                      f"{ratios(out, runs['cpu'][0], runs['f32'][0])}", flush=True)
         if args.replay:
             replay(cfg, chip_smoke.capsule_clouds(cfg.batch_size, cfg.num_point, seed=seeds[0]))
 

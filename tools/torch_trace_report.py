@@ -17,10 +17,10 @@ innermost benchmark range, as `perfbench/trace.py::Profile` labels it, and
 by the innermost program span; idle gaps by the innermost range of either
 set.  The numbers the program's spans give (`METRICS`: among them the
 device ms a batch of each `net.*` span of the forward, and the points the
-wide direction core served and the contractions' 64-channel slices a
-batch) sit beside the benchmark's own reading of the same batch, and
-beside the offset of each span's in-memory start from its profiler
-range's (the two clocks).
+wide direction core served, the contractions' 64-channel slices and the
+bf16 tensor-core products a batch) sit beside the benchmark's own reading
+of the same batch, and beside the offset of each span's in-memory start
+from its profiler range's (the two clocks).
 Prints the card's name and power limit, then one JSON line a seed, and
 writes them all to `--out`.
 """
@@ -211,6 +211,7 @@ METRICS = {"serve.lm_ms": ("fit.lm0", "fit.lm1"),
            "serve.net_ms": NET_SPANS,
            "dircore.wide_points": ("dircore.wide_points",),
            "interconv.slices": ("interconv.slices",),
+           "bf16.tc_products": ("bf16.tc_products",),
            "train.interconv_backward_ms": ("interconv.backward",),
            "train.skipped_updates": ("step.skipped_updates",)}
 
@@ -350,7 +351,8 @@ def measure(cell_name, seed, seconds, device="cuda"):
                           "serve.net_ms": net_ms(red, calls),
                           "dircore.wide_points": per_call(p_counts, "dircore.wide_points",
                                                           calls),
-                          "interconv.slices": per_call(p_counts, "interconv.slices", calls)}
+                          "interconv.slices": per_call(p_counts, "interconv.slices", calls),
+                          "bf16.tc_products": per_call(p_counts, "bf16.tc_products", calls)}
         fit_idle = sum(v for (b, _), v in red["gap_pairs"].items() if b == "serve.fit")
         named = sum(v for (b, p), v in red["gap_pairs"].items()
                     if b == "serve.fit" and p in FIT_IDLE)
