@@ -11,8 +11,8 @@ median |out - ref| / (|ref| + 1e-2) <= 5e-3 and max |out - ref| <=
 5e-2 * (1 + max |ref|).
 
 The network: the port's bf16 EtchNet against JAX `EtchNet(use_bfloat16=True)`
-at the tiny config of tests/test_torch_model.py, weights converted by
-`flax_to_state_dict`.  On the CPU the JAX package runs its XLA reference
+at the tiny config of tests/test_torch_model.py (`torch_parity.CFG_KW`),
+weights converted by `flax_to_state_dict`.  On the CPU the JAX package runs its XLA reference
 functions, which round in other places than its kernels (f32 weights in the
 direction core and the vector attention, bf16 elementwise sums), while the
 port follows the kernels.  Measured on the JAX package alone, bf16 against
@@ -31,7 +31,6 @@ import pytest
 import torch
 
 from etch_tpu.geometry import get_anchors, get_kernel_points
-from etch_tpu.models.etch_net import EtchNet as JaxEtchNet
 from etch_tpu.nn.pallas_attention import packed_attention
 from etch_tpu.nn.pallas_dircore import direction_core_pallas
 from etch_tpu.nn.pallas_dircore import direction_core_ref as jax_direction_core_ref
@@ -39,15 +38,13 @@ from etch_tpu.nn.pallas_grouped_head import grouped_head_pallas
 from etch_tpu.nn.pallas_interconv import interconv_t_pallas
 from etch_tpu.nn.pallas_vector_attention import vector_attention_pallas
 from etch_tpu.ops import group_points as jax_group
-from etch_tpu.utils.config import EtchConfig as JaxConfig
-from etch_tpu_torch.convert import flax_to_state_dict
-from etch_tpu_torch.models.etch_net import EtchNet
 from etch_tpu_torch.nn import dircore, grouped_head, interconv, vector_attention
 from etch_tpu_torch.ops.ball_query import ball_query_torch
 from etch_tpu_torch.pipeline import build_pipeline
 from etch_tpu_torch.utils.config import EtchConfig
 
-from test_torch_model import CFG_KW, N, _perturb, _points
+from torch_parity import (CFG_KW, N, _close_kernel, _core_params, capsule, markerset,
+                          paired_nets)
 
 BF16 = torch.bfloat16
 
@@ -56,31 +53,8 @@ def _t(a, dtype=torch.float32):
     return torch.tensor(np.asarray(a, np.float32)).to(dtype)
 
 
-def _close_kernel(out, ref):
-    out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
-    assert out.shape == ref.shape
-    err = np.abs(out - ref)
-    med = np.median(err / (np.abs(ref) + 1e-2))
-    assert med <= 5e-3, f"median rel err {med}"
-    assert err.max() <= 5e-2 * (1 + np.abs(ref).max()), f"max abs err {err.max()}"
-
-
-def _dircore_params(E=64, V=128, seed=3):
-    rng = np.random.RandomState(seed)
-    p = {}
-    for l in (0, 1):
-        for nm in ("wq", "wk", "wv"):
-            p[f"{nm}{l}"] = rng.randn(E, E) / np.sqrt(E)
-    p["wc0"], p["bc0"] = rng.randn(E, E) / np.sqrt(E), rng.randn(E) * 0.1
-    p["wc1"], p["bc1"] = rng.randn(E, V) / np.sqrt(E), rng.randn(V) * 0.1
-    p["wm0"], p["bm0"] = rng.randn(V, V) / np.sqrt(V), rng.randn(V) * 0.1
-    p["wm1"], p["bm1"] = rng.randn(V, V) / np.sqrt(V), rng.randn(V) * 0.1
-    p["wr"], p["br"] = rng.randn(V, 1) / np.sqrt(V), rng.randn(1) * 0.1
-    return {k: np.asarray(v, np.float32) for k, v in p.items()}
-
-
 def test_dircore_matches_pallas():
-    p = _dircore_params()
+    p = {k: v.numpy() for k, v in _core_params(64, 128, 3).items()}
     tokens = np.random.RandomState(0).randn(4, 60, 64).astype(np.float32)
     ref = direction_core_pallas(jnp.asarray(tokens),
                                 {k: jnp.asarray(v) for k, v in p.items()}, 8, tile=4,
@@ -200,21 +174,7 @@ def test_interconv_t_bf16_matches_pallas(C):
 
 @pytest.fixture(scope="module")
 def bf16_models():
-    kw = dict(CFG_KW, use_bfloat16=True)
-    jm = JaxEtchNet(cfg=JaxConfig.tiny(**kw))
-    v = jax.jit(lambda r, x: jm.init(r, x, train=False))(
-        jax.random.PRNGKey(0), jnp.zeros((1, N, 3)))
-    rng = np.random.RandomState(7)
-    variables = {"params": _perturb(jax.tree_util.tree_map(np.asarray, v["params"]), rng),
-                 "batch_stats": _perturb(jax.tree_util.tree_map(np.asarray,
-                                                                v["batch_stats"]), rng)}
-    skip = variables["params"]["encoder"]["block0_conv0"]["skip_conv"]
-    skip["kernel"], skip["bias"] = np.zeros_like(skip["kernel"]), np.zeros_like(skip["bias"])
-    cfg = EtchConfig.tiny(**kw)
-    tm = EtchNet(cfg).eval()
-    tm.load_state_dict(flax_to_state_dict(variables["params"], variables["batch_stats"], cfg),
-                       strict=True)
-    return jm, variables, tm
+    return paired_nets(0, 7, **CFG_KW, use_bfloat16=True)
 
 
 def test_bf16_flax_tree_converts(bf16_models):
@@ -228,7 +188,10 @@ def test_bf16_flax_tree_converts(bf16_models):
 @torch.no_grad()
 def test_bf16_etchnet_forward(bf16_models):
     jm, variables, tm = bf16_models
-    pts = _points(4, 2)
+    pts = capsule(4, 2, N)
+    # op by op, the rounding points the docstring names: under jit XLA fuses
+    # the bf16 elementwise sums, and the magnitudes' median read 0.70 of its
+    # bound in place of 0.57
     ref = jm.apply(variables, jnp.asarray(pts), train=False)
     out = tm(torch.from_numpy(pts))
     for key in ("magnitude", "part_labels", "confidences"):
@@ -273,13 +236,9 @@ def test_bf16_direction_core_anchor_weights(bf16_models):
 
 def test_bf16_run_batch_on_cpu():
     B, Np = 2, 256
-    markers = {f"M{i}": int(v) for i, v in enumerate(np.linspace(0, 6889, 86).astype(int))}
     pipe = build_pipeline(EtchConfig.tiny(num_point=Np, batch_size=B, use_bfloat16=True),
-                          markers, allow_synthetic_body=True, device="cpu")
-    rng = np.random.RandomState(0)
-    z, th = rng.uniform(-0.9, 0.9, (B, Np)), rng.uniform(0, 2 * np.pi, (B, Np))
-    r = 0.15 + 0.03 * np.cos(3 * z)
-    out = pipe.run_batch(np.stack([r * np.cos(th), r * np.sin(th), z], -1))
+                          markerset(), allow_synthetic_body=True, device="cpu")
+    out = pipe.run_batch(capsule(0, B, Np))
     shapes = {"vectors": (B, Np, 3), "inner_points": (B, Np, 3), "part_labels": (B, Np),
               "confidences": (B, Np, 1), "markers": (B, 86, 3), "markers_valid": (B, 86),
               "verts": (B, 6890, 3), "joints": (B, 45, 3)}

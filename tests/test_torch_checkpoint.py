@@ -14,7 +14,6 @@
     occupancy skip conv zeroed, as there).
 """
 
-import importlib.util
 import os
 import pickle
 import sys
@@ -38,22 +37,11 @@ from etch_tpu_torch.train.losses import compute_losses
 from etch_tpu_torch.train.state import _guarded_update, create_train_state, make_train_step
 from etch_tpu_torch.train.synthetic import make_batch
 from etch_tpu_torch.utils.config import EtchConfig
+from torch_parity import (REPO, _close_forward, _orbax_tool, capsule, jax_apply, markerset,
+                          zero_first_skip)
 
-REPO = os.path.join(os.path.dirname(__file__), "..")
 N, B = 128, 2
 CFG_KW = dict(num_point=N, batch_size=B, unet_blocks=(1, 2, 1, 1, 2), dir_num_layers=2)
-
-
-def _markerset():
-    return {f"M{i}": int(v) for i, v in enumerate(np.linspace(0, 6889, 86).astype(int))}
-
-
-def _points(seed):
-    rng = np.random.RandomState(seed)
-    z = rng.uniform(-0.9, 0.9, (B, N))
-    th = rng.uniform(0, 2 * np.pi, (B, N))
-    r = 0.15 + 0.03 * np.cos(3 * z)
-    return np.stack([r * np.cos(th), r * np.sin(th), z], -1).astype(np.float32)
 
 
 def _trained_state(cfg, steps=2):
@@ -118,7 +106,7 @@ def test_signature_mismatch_raises(tmp_path):
     with pytest.raises(ValueError, match="signature mismatch"):
         checkpoint.restore_train_state(d, fresh)
     with pytest.raises(ValueError, match="signature mismatch"):
-        build_pipeline(other, _markerset(), checkpoint_path=d, allow_synthetic_body=True,
+        build_pipeline(other, markerset(), checkpoint_path=d, allow_synthetic_body=True,
                        device="cpu")
     with pytest.raises(FileNotFoundError):
         checkpoint.restore_train_state(str(tmp_path / "empty"), fresh)
@@ -175,14 +163,6 @@ def test_load_smpl_bit_equal(tmp_path):
         load_body_model("male", root=str(tmp_path))
 
 
-def _orbax_tool():
-    spec = importlib.util.spec_from_file_location(
-        "orbax_to_torch", os.path.join(REPO, "tools", "orbax_to_torch.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def test_orbax_checkpoint_serves_through_build_pipeline(tmp_path):
     jcfg = JaxConfig.tiny(**CFG_KW)
     jm = JaxEtchNet(cfg=jcfg)
@@ -192,9 +172,7 @@ def test_orbax_checkpoint_serves_through_build_pipeline(tmp_path):
     rng = np.random.RandomState(2)   # BN statistics off their init, as tests/test_torch_model.py
     stats = jax.tree_util.tree_map(lambda a: (a * rng.uniform(0.5, 1.5, a.shape)).astype(np.float32),
                                    stats)
-    skip = params["encoder"]["block0_conv0"]["skip_conv"]
-    skip["kernel"][:] = 0.0
-    skip["bias"][:] = 0.0
+    zero_first_skip(params)
     jax_save_params(str(tmp_path / "orbax"), params, stats)
     cfg = EtchConfig.tiny(**CFG_KW)
     cfg_json = tmp_path / "config.json"
@@ -202,19 +180,13 @@ def test_orbax_checkpoint_serves_through_build_pipeline(tmp_path):
     path = _orbax_tool().main([str(tmp_path / "orbax"), str(tmp_path / "port"),
                                "--config_json", str(cfg_json)])
     assert os.path.basename(path) == "weights.pt"
-    pipe = build_pipeline(cfg, _markerset(), checkpoint_path=str(tmp_path / "port"),
+    pipe = build_pipeline(cfg, markerset(), checkpoint_path=str(tmp_path / "port"),
                           allow_synthetic_body=True, device="cpu")
-    pts = _points(4)
-    ref = jax.tree_util.tree_map(np.asarray, jm.apply({"params": params, "batch_stats": stats},
-                                                      jnp.asarray(pts), train=False))
+    pts = capsule(4, B, N)
+    ref = jax_apply(jm, {"params": params, "batch_stats": stats}, pts, train=False)
     with torch.no_grad():
         out = pipe.model(torch.from_numpy(pts))
-    for key in ("part_labels", "confidences", "magnitude"):
-        err = np.abs(out[key].numpy() - ref[key]).max()
-        assert err <= 1e-4 * (1 + np.abs(ref[key]).max()), (key, err)
-    # the chordal mean is ill-conditioned at random weights
-    err = np.abs(out["direction"].numpy() - ref["direction"])
-    assert np.quantile(err, 0.99) <= 2e-4 and err.max() <= 1e-2, err.max()
+    _close_forward(out, ref)
 
 
 def test_train_cli_then_serve_the_checkpoint(tmp_path):
@@ -239,7 +211,7 @@ def test_train_cli_then_serve_the_checkpoint(tmp_path):
     assert [r["step"] for r in rows] == [0, 1]
     assert all(np.isfinite(r["all_loss"]) for r in rows)
     cfg = EtchConfig(num_point=128, epochs=2)
-    pipe = build_pipeline(cfg, _markerset(), checkpoint_path=os.path.join(out, "checkpoints"),
+    pipe = build_pipeline(cfg, markerset(), checkpoint_path=os.path.join(out, "checkpoints"),
                           allow_synthetic_body=True, device="cpu")
     saved = torch.load(os.path.join(out, "checkpoints", "1.pt"), weights_only=True)
     assert saved["step"] == 1 and EtchConfig.from_json(saved["config_json"]) == cfg

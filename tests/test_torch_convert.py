@@ -9,7 +9,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from etch_tpu.models.etch_net import EtchNet as JaxEtchNet
 from etch_tpu.utils.config import EtchConfig as JaxConfig

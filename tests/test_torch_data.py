@@ -28,9 +28,7 @@ from etch_tpu_torch import native
 from etch_tpu_torch.data import dataset, geodesics, proximity
 from etch_tpu_torch.data.mesh import TriMesh
 from etch_tpu_torch.utils.logging import MetricLogger
-
-DATA = os.path.join(os.path.dirname(__file__), "..", "datafolder")
-ITEM = "00122_Inner_Take2_00011"
+from torch_parity import INFO_DIR, MARKERSET, SAMPLE, SCAN_DIR, SMPL_DIR, TRAIN_IDS
 
 
 def _sphere(subdiv):
@@ -103,21 +101,19 @@ def test_native_builds_outside_the_source_tree():
 
 @pytest.fixture(scope="module")
 def paths():
-    kw = dict(scan_dir=f"{DATA}/4D-DRESS/data_processed/model",
-              smpl_dir=f"{DATA}/4D-DRESS/data_processed/smplh",
-              infopoints_dir=f"{DATA}/gt_4D-Dress_data/npz",
-              activated_ids_path=f"{DATA}/useful_data_4d-dress/train_ids.pkl")
-    with open(f"{DATA}/useful_data_4d-dress/superset_smpl.json") as fh:
+    kw = dict(scan_dir=SCAN_DIR, smpl_dir=SMPL_DIR, infopoints_dir=INFO_DIR,
+              activated_ids_path=TRAIN_IDS)
+    with open(MARKERSET) as fh:
         markers = list(json.load(fh).values())
     return dataset.DatasetPaths(**kw), jax_dataset.DatasetPaths(**kw), markers
 
 
 def test_load_item_bit_equal_on_bundled_sample(paths):
     ours_p, ref_p, markers = paths
-    assert dataset.list_ids(ours_p) == jax_dataset.list_ids(ref_p) == [ITEM]
+    assert dataset.list_ids(ours_p) == jax_dataset.list_ids(ref_p) == [SAMPLE]
     kw = dict(num_point=512, marker_vertex_ids=markers, seed=1, include_marker_positions=True)
-    ours = dataset.load_item(ours_p, ITEM, **kw)
-    ref = jax_dataset.load_item(ref_p, ITEM, **kw)
+    ours = dataset.load_item(ours_p, SAMPLE, **kw)
+    ref = jax_dataset.load_item(ref_p, SAMPLE, **kw)
     assert proximity.last_backend == "native"
     assert set(ours) == set(ref)
     for k in ref:
@@ -129,7 +125,7 @@ def test_load_item_bit_equal_on_bundled_sample(paths):
     for k in b:
         _eq(a[k], b[k])
     both = dataset.ConcatDataset([ds, ds])
-    assert len(both) == 2 and both[1]["id"] == ITEM
+    assert len(both) == 2 and both[1]["id"] == SAMPLE
 
 
 class _Items:

@@ -22,7 +22,6 @@
 
 import os
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -31,23 +30,17 @@ from etch_tpu.data.mesh import load_obj as jax_load_obj
 from etch_tpu.data.mesh import save_obj as jax_save_obj
 from etch_tpu.data.sampling import sample_barycentric as jax_sample_barycentric
 from etch_tpu.data.sampling import sample_surface as jax_sample_surface
-from etch_tpu.pipeline import InferencePipeline as JaxPipeline
-from etch_tpu.pipeline import build_pipeline as jax_build
-from etch_tpu.utils.config import EtchConfig as JaxConfig
 from etch_tpu_torch import pipeline as port_pipeline
 from etch_tpu_torch.body.smpl import marker_forward, marker_submodel, synthetic_body_model
 from etch_tpu_torch.cli import infer
-from etch_tpu_torch.convert import flax_to_state_dict
 from etch_tpu_torch.data import mesh, sampling
 from etch_tpu_torch.fit.lm import levenberg_marquardt
 from etch_tpu_torch.fit.smpl_fit import NUM_POSE, fit_smpl_params
 from etch_tpu_torch.pipeline import build_pipeline
 from etch_tpu_torch.utils.config import EtchConfig
+from torch_parity import MARKERSET, REPO, SAMPLE, SCAN_DIR, _close, paired_pipelines
 
-REPO = os.path.join(os.path.dirname(__file__), "..")
-SCAN = os.path.join(REPO, "datafolder", "4D-DRESS", "data_processed", "model",
-                    "00122_Inner_Take2_00011", "00122_Inner_Take2_00011.obj")
-MARKERSET = os.path.join(REPO, "datafolder", "useful_data_4d-dress", "superset_smpl.json")
+SCAN = os.path.join(SCAN_DIR, SAMPLE, f"{SAMPLE}.obj")
 N = 256
 CFG_KW = dict(num_point=N, batch_size=1)
 
@@ -82,16 +75,7 @@ def test_sampling_copy_bit_equal(scan):
 
 @pytest.fixture(scope="module")
 def pipes():
-    markerset = port_pipeline.load_markerset(MARKERSET)
-    ref = jax_build(JaxConfig.tiny(**CFG_KW), markerset, allow_synthetic_body=True)
-    params = jax.tree_util.tree_map(np.array, ref.params)
-    stats = jax.tree_util.tree_map(np.array, ref.batch_stats)
-    skip = params["encoder"]["block0_conv0"]["skip_conv"]
-    skip["kernel"], skip["bias"] = np.zeros_like(skip["kernel"]), np.zeros_like(skip["bias"])
-    ref = JaxPipeline(ref.cfg, params, stats, ref.body_model, ref.marker_vids)
-    cfg = EtchConfig.tiny(**CFG_KW)
-    port = build_pipeline(cfg, markerset, state_dict=flax_to_state_dict(params, stats, cfg),
-                          allow_synthetic_body=True, device="cpu")
+    ref, port = paired_pipelines(port_pipeline.load_markerset(MARKERSET), **CFG_KW)
     np.testing.assert_array_equal(port.marker_vids, ref.marker_vids)
     return ref, port
 
@@ -102,13 +86,6 @@ def scan_results(pipes):
     return ref.run_scan(SCAN, seed=0), port.run_scan(SCAN, seed=0)
 
 
-def _close(out, ref, atol):
-    out, ref = np.asarray(out), np.asarray(ref)
-    assert out.shape == ref.shape
-    err = np.abs(out - ref).max()
-    assert err <= atol, f"max abs err {err} > {atol}"
-
-
 def test_run_scan_matches_jax(scan_results):
     ref, out = scan_results
     assert set(out) == set(ref) and set(out["pred"]) == set(ref["pred"])
@@ -117,8 +94,7 @@ def test_run_scan_matches_jax(scan_results):
     np.testing.assert_array_equal(out["center"], ref["center"])
     np.testing.assert_array_equal(out["faces"], ref["faces"])
     for key in ("vectors", "inner_points", "confidences", "magnitude", "part_logits"):
-        r = ref["pred"][key]
-        _close(out["pred"][key], r, 1e-4 * (1 + np.abs(r).max()))
+        _close(out["pred"][key], ref["pred"][key])
     np.testing.assert_array_equal(out["pred"]["part_labels"], ref["pred"]["part_labels"])
     np.testing.assert_array_equal(out["valid_mask"], ref["valid_mask"])
     _close(out["markers"], ref["markers"], 1e-4)

@@ -50,16 +50,9 @@ from etch_tpu_torch.cli import compute_mpjpe, evaluate
 from etch_tpu_torch.data import mesh
 from etch_tpu_torch.utils.colormap import VIRIDIS, viridis
 from etch_tpu_torch.utils.config import EtchConfig
+from torch_parity import (DATA, INFO_DIR, MARKERSET, SAMPLE, SCAN_DIR, SMPL_DIR, _orbax_tool,
+                          zero_first_skip)
 
-from test_torch_checkpoint import _orbax_tool
-
-REPO = os.path.join(os.path.dirname(__file__), "..")
-DATA = os.path.join(REPO, "datafolder")
-SAMPLE = "00122_Inner_Take2_00011"
-SCAN_DIR = os.path.join(DATA, "4D-DRESS", "data_processed", "model")
-SMPL_DIR = os.path.join(DATA, "4D-DRESS", "data_processed", "smplh")
-INFO_DIR = os.path.join(DATA, "gt_4D-Dress_data", "npz")
-MARKERSET = os.path.join(DATA, "useful_data_4d-dress", "superset_smpl.json")
 N = 256
 CFG_KW = dict(num_point=N, batch_size=1)
 
@@ -122,9 +115,7 @@ def runs(tmp_path_factory):
                                                          jnp.zeros((1, N, 3)))
     params = jax.tree_util.tree_map(np.array, v["params"])
     stats = jax.tree_util.tree_map(np.array, v["batch_stats"])
-    skip = params["encoder"]["block0_conv0"]["skip_conv"]
-    skip["kernel"][:] = 0.0
-    skip["bias"][:] = 0.0
+    zero_first_skip(params)
     jax_save_params(str(tmp / "orbax"), params, stats)
     cfg_json = tmp / "config.json"
     cfg_json.write_text(EtchConfig.tiny(**CFG_KW).to_json())

@@ -18,7 +18,6 @@ on the CPU (tests/test_torch_fit_graph_cuda.py replays it on the card):
 import sys
 from pathlib import Path
 
-import numpy as np
 import pytest
 import torch
 from torch.func import jacfwd, vmap

@@ -32,14 +32,8 @@ from etch_tpu.geometry import augment as jax_augment
 from etch_tpu_torch.cli import correspondence, generate_infopoints, make_splits
 from etch_tpu_torch.data import amass, mesh
 from etch_tpu_torch.geometry import augment
-
-from test_infopoints import BODY, box_mesh, merge, scan_with_top, top_face_samples
-
-REPO = os.path.join(os.path.dirname(__file__), "..")
-DATA = os.path.join(REPO, "datafolder")
-SAMPLE = "00122_Inner_Take2_00011"
-SCAN_DIR = os.path.join(DATA, "4D-DRESS", "data_processed", "model")
-SMPL_DIR = os.path.join(DATA, "4D-DRESS", "data_processed", "smplh")
+from torch_parity import (BODY, SAMPLE, SCAN_DIR, SMPL_DIR, box_mesh, merge, scan_with_top,
+                          top_face_samples)
 
 
 def test_augment_bit_equal():

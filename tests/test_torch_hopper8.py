@@ -40,18 +40,9 @@ from etch_tpu_torch.geometry.kernel_points import get_kernel_points
 from etch_tpu_torch.nn import attention, dircore, grouped_head
 from etch_tpu_torch.nn.bf16 import BF16, rnd
 from etch_tpu_torch.utils.config import EtchConfig, backbone_plan
-
-from test_torch_bf16 import _close_kernel
-from test_torch_widths import _core_params
+from torch_parity import _bf16_gate, _close_kernel, _core_params
 
 F32 = np.float32
-
-
-def _bf16_gate(out, ref):
-    out, ref = out.float(), ref.float()
-    err = (out - ref).abs()
-    assert err.max() <= 1e-2 * ref.abs().max(), err.max()
-    assert (err / (ref.abs() + 1e-2)).median() <= 1e-3
 
 
 # --- the direction core above 512 columns ------------------------------------------

@@ -30,28 +30,21 @@ reference takes:
     8, with tests/test_torch_model.py's tolerances.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from etch_tpu.models.etch_net import EtchNet as JaxEtchNet
 from etch_tpu.ops.ball_query import _ball_query_xla
-from etch_tpu.utils.config import EPNConfig as JaxEPNConfig
-from etch_tpu.utils.config import EtchConfig as JaxConfig
-from etch_tpu_torch.convert import flax_to_state_dict
 from etch_tpu_torch.geometry.icosahedral import get_anchors
 from etch_tpu_torch.geometry.kernel_points import get_kernel_points
-from etch_tpu_torch.models.etch_net import EtchNet
 from etch_tpu_torch.nn import interconv, vector_attention
 from etch_tpu_torch.nn.bf16 import BF16
 from etch_tpu_torch.ops.ball_query import ball_query_torch, radius_sq
 from etch_tpu_torch.ops.knn import pairwise_sqdist
-from etch_tpu_torch.utils.config import EPNConfig, EtchConfig, backbone_plan
-
-from test_torch_model import _close, _perturb
-from test_torch_ops import _radius_without_boundary_pairs
+from etch_tpu_torch.utils.config import EtchConfig, backbone_plan
+from torch_parity import (_bf16_gate, _close_forward,
+                          _radius_without_boundary_pairs, capsule, jax_apply, paired_nets)
 
 F32 = np.float32
 
@@ -180,9 +173,7 @@ def _conv1_inputs(seed, P=2500, c=100, nn=64):
     1-channel features."""
     spec = backbone_plan(EtchConfig(num_point=5000, batch_size=8))[0][1]
     g = np.random.RandomState(seed)
-    z, th = g.uniform(-0.9, 0.9, (1, P)), g.uniform(0, 2 * np.pi, (1, P))
-    rad = 0.15 + 0.03 * np.cos(3 * z)
-    xyz = np.stack([rad * np.cos(th), rad * np.sin(th), z], -1).astype(F32)
+    xyz = capsule(g, 1, P)
     ctr = xyz[:, :c].copy()
     nbr = ball_query_torch(torch.from_numpy(ctr), torch.from_numpy(xyz), spec["radius"], nn)
     rk = np.einsum("aij,kj->aki", get_anchors(60),
@@ -220,10 +211,7 @@ def test_c1_expanded_form_within_the_bf16_gate():
     out = torch.from_numpy(_c1_expanded(x, fb.float().numpy()[0][idx], rk, sigma)).to(BF16)
     ref = interconv.interconv_t_c1_torch(torch.from_numpy(xyz), torch.from_numpy(ctr), nbr,
                                          fb, torch.from_numpy(rk), sigma, 60)
-    ref = ref.reshape(out.shape).float()
-    err = (out.float() - ref).abs()
-    assert err.max() <= 1e-2 * ref.abs().max()
-    assert (err / (ref.abs() + 1e-2)).median() <= 1e-3
+    _bf16_gate(out, ref.reshape(out.shape))
 
 
 # --- the wrappers' geometry at every repaired width --------------------------------
@@ -383,17 +371,6 @@ _NETS = {
 }
 
 
-def _configs(kw):
-    """The JAX and the port's EtchConfig.tiny with the variant's overrides
-    (its "epn" entry as EPNConfig fields)."""
-    kw = dict(TINY_KW, **kw)
-    epn = kw.pop("epn", None)
-    if epn is None:
-        return JaxConfig.tiny(**kw), EtchConfig.tiny(**kw)
-    return (JaxConfig.tiny(epn=JaxEPNConfig(**epn), **kw),
-            EtchConfig.tiny(epn=EPNConfig(**epn), **kw))
-
-
 @torch.no_grad()
 @pytest.mark.parametrize("variant", list(_NETS))
 def test_etchnet_repaired_widths_match_jax(variant):
@@ -402,25 +379,8 @@ def test_etchnet_repaired_widths_match_jax(variant):
     12, 20 and 36: the port's forward on the CPU against JAX EtchNet's XLA
     paths, weights converted, with tests/test_torch_model.py's
     tolerances."""
-    cfg_j, cfg = _configs(_NETS[variant])
-    jm = JaxEtchNet(cfg=cfg_j)
-    v = jax.jit(lambda r, x: jm.init(r, x, train=False))(
-        jax.random.PRNGKey(3), jnp.zeros((1, N_TINY, 3)))
-    rng = np.random.RandomState(13)
-    variables = {"params": _perturb(jax.tree_util.tree_map(np.asarray, v["params"]), rng),
-                 "batch_stats": _perturb(jax.tree_util.tree_map(np.asarray, v["batch_stats"]),
-                                         rng)}
-    skip = variables["params"]["encoder"]["block0_conv0"]["skip_conv"]
-    skip["kernel"], skip["bias"] = np.zeros_like(skip["kernel"]), np.zeros_like(skip["bias"])
-    tm = EtchNet(cfg).eval()
-    tm.load_state_dict(flax_to_state_dict(variables["params"], variables["batch_stats"], cfg))
-    g = np.random.RandomState(8)
-    z, th = g.uniform(-0.9, 0.9, (2, N_TINY)), g.uniform(0, 2 * np.pi, (2, N_TINY))
-    r = 0.15 + 0.03 * np.cos(3 * z)
-    pts = np.stack([r * np.cos(th), r * np.sin(th), z], -1).astype(F32)
-    ref = jm.apply(variables, jnp.asarray(pts), train=False)
+    jm, variables, tm = paired_nets(3, 13, **TINY_KW, **_NETS[variant])
+    pts = capsule(8, 2, N_TINY)
+    ref = jax_apply(jm, variables, pts, train=False)
     out = tm(torch.from_numpy(pts))
-    for key in ("magnitude", "part_labels", "confidences"):
-        _close(out[key].numpy(), ref[key])
-    err = np.abs(out["direction"].numpy() - np.asarray(ref["direction"]))
-    assert np.quantile(err, 0.99) <= 2e-4 and err.max() <= 1e-2, err.max()
+    _close_forward(out, ref)

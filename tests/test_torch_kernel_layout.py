@@ -21,11 +21,12 @@ import torch
 from etch_tpu_torch import _build
 from etch_tpu_torch.geometry.icosahedral import get_anchors
 from etch_tpu_torch.geometry.kernel_points import get_kernel_points
-from etch_tpu_torch.nn import attention, dircore, interconv
+from etch_tpu_torch.nn import dircore, interconv
 from etch_tpu_torch.nn.bf16 import rnd
 from etch_tpu_torch.ops.ball_query import ball_query_torch
 from etch_tpu_torch.pipeline import build_pipeline
 from etch_tpu_torch.utils.config import EtchConfig, backbone_plan
+from torch_parity import _padded_attention_matches, capsule
 
 
 def test_build_pipeline_defaults_to_the_card():
@@ -195,9 +196,7 @@ def test_3xtf32_contraction_is_f32_accurate():
     spec = backbone_plan(EtchConfig(num_point=5000, batch_size=8))[0][1]
     nn, C, A = spec["n_neighbor"], spec["dim_in"], 60
     rng = np.random.RandomState(0)
-    z, th = rng.uniform(-0.9, 0.9, 2500), rng.uniform(0, 2 * np.pi, 2500)
-    r = 0.15 + 0.03 * np.cos(3 * z)
-    xyz = torch.tensor(np.stack([r * np.cos(th), r * np.sin(th), z], -1)[None], dtype=torch.float32)
+    xyz = torch.from_numpy(capsule(rng, 1, 2500))
     ctr = xyz[:, :16].contiguous()
     nbr = ball_query_torch(ctr, xyz, spec["radius"], nn)
     kp = get_kernel_points(spec["radius"], spec["kernel_size"])
@@ -239,40 +238,6 @@ def test_interconv_tf32_geometry():
     assert interconv.tf32_smem_bytes(64, 6) == interconv.tf32_smem_bytes(64, 8)
     with pytest.raises(ValueError):
         interconv.check_tf32_geometry(9000, 64)
-
-
-def _padded_attention_matches(Bc, L, E, H, seed):
-    """The anchor attention's padded layout in float64: each head padded by
-    zero columns to 8 or to a multiple of 16, the keys to 64 rows, those at
-    L..63 masked to -inf and their k and v rows zero."""
-    hs = E // H
-    hp = 8 if hs <= 8 else -(-hs // 16) * 16
-    g = np.random.RandomState(seed)
-    q, k, v = (rnd(torch.tensor(g.randn(Bc, L, E) * (hs ** -0.5 if i == 0 else 1.0),
-                                dtype=torch.float32)) for i in range(3))
-
-    def pad(t):
-        out = np.zeros((Bc, 64, H, hp))
-        out[:, :L, :, :hs] = t.double().numpy().reshape(Bc, L, H, hs)
-        return out
-
-    qp, kp, vp = pad(q), pad(k), pad(v)
-    s = np.einsum("bqhd,bkhd->bhqk", qp, kp)
-    heads = q.double().numpy().reshape(Bc, L, H, hs), k.double().numpy().reshape(Bc, L, H, hs)
-    np.testing.assert_array_equal(s[:, :, :L, :L], np.einsum("bqhd,bkhd->bhqk", *heads))
-    s[..., L:] = -np.inf
-    e = np.exp(s - s.max(-1, keepdims=True))
-    a = e / e.sum(-1, keepdims=True)
-    assert (a[..., L:] == 0).all()
-    ab = rnd(torch.from_numpy(a.astype(np.float32))).double().numpy()
-    o = np.einsum("bhqk,bkhd->bqhd", ab, vp)
-    assert (o[..., hs:] == 0).all()
-    out = torch.from_numpy(o[:, :L, :, :hs].reshape(Bc, L, E)).float()
-    ref = attention.attention_torch(q.to(torch.bfloat16), k.to(torch.bfloat16),
-                                    v.to(torch.bfloat16), H)
-    err = (out - ref).abs()
-    assert err.max() <= 1e-2 * ref.abs().max()
-    assert (err / (ref.abs() + 1e-2)).median() <= 1e-3
 
 
 @pytest.mark.parametrize("E,H", [(24, 8), (24, 4), (12, 1), (48, 2), (40, 2)])

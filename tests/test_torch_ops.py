@@ -27,12 +27,7 @@ from etch_tpu_torch.nn import interconv
 from etch_tpu_torch.ops.ball_query import ball_query_torch
 from etch_tpu_torch.ops.fps import fps_torch
 from etch_tpu_torch.ops.knn import knn_torch
-
-GAP = 2e-6
-
-
-def _d2(q, s):
-    return ((q[:, :, None, :].astype(np.float64) - s[:, None, :, :]) ** 2).sum(-1)
+from torch_parity import GAP, _d2, _radius_without_boundary_pairs
 
 
 def _cloud(seed, B, N):
@@ -48,15 +43,6 @@ def _tie_free_knn_inputs(B, M, N, k):
         if np.diff(d, axis=-1).min() > GAP:
             return q, s
     raise AssertionError("no tie-free cloud found")
-
-
-def _radius_without_boundary_pairs(q, s, candidates):
-    d = _d2(q, s)
-    for r in candidates:
-        r2 = float(np.float32(r) * np.float32(r))
-        if np.abs(d - r2).min() > GAP:
-            return r
-    raise AssertionError("every candidate radius has a pair on its boundary")
 
 
 @pytest.fixture(scope="module")

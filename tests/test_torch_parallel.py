@@ -45,9 +45,9 @@ import numpy as np
 import pytest
 
 from etch_tpu_torch.train.state import ZERO_GRADIENT
-from etch_tpu_torch.train.synthetic import make_batch
 from etch_tpu_torch.utils.config import EtchConfig
 from tools import torch_parallel_check as check
+from torch_parity import scaled_batch
 
 N, B, WORLD = 128, 8, 2
 SGD_LR, SGD_STEPS = 1e-2, 3
@@ -67,13 +67,7 @@ def _cfg(bf16=False):
 
 def _batches(n, seed=0):
     rs = np.random.RandomState(seed)
-    out = []
-    for _ in range(n):
-        b = make_batch(rs, B, N)
-        b["hitpts"] = (b["hitpts"] * 0.5).astype(np.float32)
-        b["vectors"] = (b["vectors"] * 0.5).astype(np.float32)
-        out.append(b)
-    return out
+    return [scaled_batch(rs, B, N) for _ in range(n)]
 
 
 def _nan_batch():

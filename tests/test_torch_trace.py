@@ -12,10 +12,10 @@ import torch
 
 from etch_tpu_torch.pipeline import build_pipeline
 from etch_tpu_torch.train.state import create_train_state, make_train_step
-from etch_tpu_torch.train.synthetic import make_batch
 from etch_tpu_torch.utils import trace
 from etch_tpu_torch.utils.config import EtchConfig
 from tools import torch_trace_report as report
+from torch_parity import capsule, scaled_batch, markerset
 
 N, B = 256, 2
 STEPS0, STEPS1 = 3, 4
@@ -34,28 +34,14 @@ def tracer_off():
     trace.drain()
 
 
-def _markerset():
-    return {f"M{i}": int(v) for i, v in enumerate(np.linspace(0, 6889, 86).astype(int))}
-
-
-def _points(seed=0):
-    rng = np.random.RandomState(seed)
-    z = rng.uniform(-0.9, 0.9, (B, N))
-    th = rng.uniform(0, 2 * np.pi, (B, N))
-    r = 0.15 + 0.03 * np.cos(3 * z)
-    return np.stack([r * np.cos(th), r * np.sin(th), z], -1).astype(np.float32)
-
-
 @pytest.fixture(scope="module")
 def pipe():
-    return build_pipeline(EtchConfig.tiny(**SERVE_KW), _markerset(), allow_synthetic_body=True,
+    return build_pipeline(EtchConfig.tiny(**SERVE_KW), markerset(), allow_synthetic_body=True,
                           rng_seed=3, device="cpu")
 
 
-def _batch(seed=0):
-    b = make_batch(np.random.RandomState(seed), B, TRAIN_N)
-    return {k: (v * 0.5).astype(np.float32) if k in ("hitpts", "vectors") else v
-            for k, v in b.items()}
+def _batch(seed):
+    return scaled_batch(seed, B, TRAIN_N)
 
 
 def _train(steps):
@@ -88,16 +74,16 @@ def test_off_records_nothing_and_opens_no_profiler_range(pipe, monkeypatch):
     # torch.profiler's name, the one the tracer opens (torch.optim's own
     # ranges go through torch.autograd.profiler's)
     monkeypatch.setattr(torch.profiler, "record_function", _raise)
-    pipe.run_batch(_points())
-    _train([_batch()])
+    pipe.run_batch(capsule(0, B, N))
+    _train([_batch(0)])
     assert trace.drain() == ([], {})
     assert trace.span("fit.smpl") is trace.span("step") is trace.request("step")
 
 
 def test_run_batch_bit_identical_on_and_off(pipe):
-    off = pipe.run_batch(_points(1))
+    off = pipe.run_batch(capsule(1, B, N))
     trace.enable()
-    on = pipe.run_batch(_points(1))
+    on = pipe.run_batch(capsule(1, B, N))
     trace.disable()
     assert trace.drain()[0]
     for k in off:
@@ -130,7 +116,7 @@ def test_train_step_bit_identical_on_and_off():
 
 def test_run_batch_span_tree(pipe):
     trace.enable()
-    pipe.run_batch(_points(2))
+    pipe.run_batch(capsule(2, B, N))
     trace.disable()
     spans, counts = trace.drain()
     assert spans[0][0] == "pipeline.run_batch" and spans[0][2] is None
@@ -152,8 +138,8 @@ def test_run_batch_span_tree(pipe):
 
 def test_each_run_batch_is_a_request(pipe):
     trace.enable()
-    pipe.run_batch(_points(3))
-    pipe.run_batch(_points(4))
+    pipe.run_batch(capsule(3, B, N))
+    pipe.run_batch(capsule(4, B, N))
     trace.disable()
     spans, counts = trace.drain()
     roots = [s for s in spans if s[2] is None]
@@ -166,7 +152,7 @@ def test_each_run_batch_is_a_request(pipe):
 
 def test_train_step_span_tree():
     trace.enable()
-    _train([_batch()])
+    _train([_batch(0)])
     trace.disable()
     spans, counts = trace.drain()
     assert spans[0][0] == "step" and spans[0][2] is None
@@ -186,7 +172,7 @@ def test_skipped_updates_counts_the_guard():
     cfg = EtchConfig.tiny(**TRAIN_KW)
     model, state, opt = create_train_state(cfg, seed=1, device="cpu")
     step = make_train_step(model, opt, cfg)
-    state, _ = step(state, _batch())
+    state, _ = step(state, _batch(0))
     nan_batch = dict(_batch(1), vectors=np.full((B, TRAIN_N, 3), np.nan, np.float32))
     trace.enable()
     state, losses = step(state, nan_batch)

@@ -37,7 +37,6 @@ Tolerances:
     standard deviation its variance gives).
 """
 
-import os
 import sys
 
 import jax
@@ -58,16 +57,13 @@ from etch_tpu_torch.train.state import (ZERO_GRADIENT, _guarded_update, create_t
                                         make_train_step_dynamic)
 from etch_tpu_torch.train.synthetic import make_batch
 from etch_tpu_torch.utils.config import EtchConfig
+from torch_parity import REPO, scaled_batch, zero_first_skip
 
-REPO = os.path.join(os.path.dirname(__file__), "..")
 N, B = 128, 2
 CFG_KW = dict(num_point=N, batch_size=B, unet_blocks=(1, 2, 1, 1, 2), dir_num_layers=2,
               unet_strides=(1, 2, 2, 2, 2))
 def _batch(seed=0, scale=0.5):
-    b = make_batch(np.random.RandomState(seed), B, N)
-    b["hitpts"] = (b["hitpts"] * scale).astype(np.float32)
-    b["vectors"] = (b["vectors"] * scale).astype(np.float32)
-    return b
+    return scaled_batch(seed, B, N, scale)
 
 
 def _swap(batch):
@@ -82,10 +78,7 @@ def _np(tree):
 def ref():
     cfg = JaxConfig.tiny(**CFG_KW)
     model, state, tx = jax_create_train_state(cfg, jax.random.PRNGKey(0), jnp.zeros((1, N, 3)))
-    params, stats = _np(state.params), _np(state.batch_stats)
-    skip = params["encoder"]["block0_conv0"]["skip_conv"]
-    skip["kernel"][:] = 0.0
-    skip["bias"][:] = 0.0
+    params, stats = zero_first_skip(_np(state.params)), _np(state.batch_stats)
 
     def loss_fn(p, bs, batch):
         out, mut = model.apply({"params": p, "batch_stats": bs}, batch["hitpts"], train=True,

@@ -10,10 +10,9 @@ import numpy as np
 import pytest
 
 from tools import torch_parallel_check as check
+from torch_parity import INFO_DIR, MARKERSET, SCAN_DIR, SMPL_DIR, TRAIN_IDS
 
-DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "datafolder")
-SPEC = (f"{DATA}/4D-DRESS/data_processed/model:{DATA}/4D-DRESS/data_processed/smplh:"
-        f"{DATA}/gt_4D-Dress_data/npz:{DATA}/useful_data_4d-dress/train_ids.pkl")
+SPEC = f"{SCAN_DIR}:{SMPL_DIR}:{INFO_DIR}:{TRAIN_IDS}"
 
 
 @pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
@@ -26,7 +25,7 @@ def test_train_mixed_cli(tmp_path, dynamic):
 
     args = ["--dataset_spec", SPEC, SPEC, "--num_point", "128", "--epochs", "1",
             "--batch_size", "1", "--num_workers", "0", "--device", "cpu",
-            "--markerset_path", f"{DATA}/useful_data_4d-dress/superset_smpl.json",
+            "--markerset_path", MARKERSET,
             "--output_folder", str(tmp_path / "exp")]
     if dynamic:
         args.append("--use_dynamic_label_confidence")
@@ -53,7 +52,7 @@ def test_train_mixed_cli_two_ranks(tmp_path):
     ranks = check.run_cli(2, "etch_tpu_torch.cli.train_mixed", [
         "--dataset_spec", SPEC, SPEC, "--num_point", "128", "--epochs", "1",
         "--batch_size", "2", "--num_workers", "0", "--device", "cpu", "--no_augment",
-        "--markerset_path", f"{DATA}/useful_data_4d-dress/superset_smpl.json",
+        "--markerset_path", MARKERSET,
         "--output_folder", str(out)], timeout=600)
     assert [r["step"] for r in ranks] == [1, 1]
     for n, v in ranks[0]["params"].items():

@@ -20,27 +20,20 @@ the plain version, and the port is held to the JAX package at tiny widths:
     tests/test_torch_model.py's tolerances.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from etch_tpu.models.etch_net import EtchNet as JaxEtchNet
 from etch_tpu.nn.pallas_dircore import direction_core_pallas
-from etch_tpu.utils.config import EtchConfig as JaxConfig
-from etch_tpu_torch.convert import flax_to_state_dict
 from etch_tpu_torch.geometry.icosahedral import get_anchors
 from etch_tpu_torch.geometry.kernel_points import get_kernel_points
-from etch_tpu_torch.models.etch_net import EtchNet
 from etch_tpu_torch.nn import dircore, interconv
 from etch_tpu_torch.nn.bf16 import BF16, rnd
 from etch_tpu_torch.ops.ball_query import ball_query_torch
 from etch_tpu_torch.ops.knn import knn_torch
-from etch_tpu_torch.utils.config import EtchConfig
-
-from test_torch_kernel_layout import _padded_attention_matches
-from test_torch_model import _close, _perturb
+from torch_parity import (_bf16_gate, _close_forward, _core_params,
+                          _padded_attention_matches, capsule, jax_apply, paired_nets)
 
 F32 = np.float32
 INF = F32(np.inf)
@@ -280,11 +273,8 @@ def test_occupancy_expanded_form_within_the_bf16_gate():
     t_exp = _occupancy_expanded(xyz, ctr, nbr, rk, sigma, 60)
     t_dir = interconv.interconv_ones_torch(xyz, ctr, nbr, rk, sigma, 60)
     assert (t_exp - t_dir).abs().max() <= 1e-5 * t_dir.abs().max()
-    out = (rnd(t_exp) @ rnd(w)).to(BF16).float()
-    ref = interconv.interconv_ones_proj_torch(xyz, ctr, nbr, rk, sigma, 60, w).float()
-    err = (out - ref).abs()
-    assert err.max() <= 1e-2 * ref.abs().max()
-    assert (err / (ref.abs() + 1e-2)).median() <= 1e-3
+    _bf16_gate((rnd(t_exp) @ rnd(w)).to(BF16),
+               interconv.interconv_ones_proj_torch(xyz, ctr, nbr, rk, sigma, 60, w))
 
 
 # --- heads of any size --------------------------------------------------------
@@ -293,20 +283,6 @@ def test_occupancy_expanded_form_within_the_bf16_gate():
                                    (24, 32), (48, 48), (96, 96), (200, 208), (256, 256)])
 def test_padded_head_size(hs, hp):
     assert dircore.padded_head_size(hs) == hp
-
-
-def _core_params(E, V, seed):
-    g = np.random.RandomState(seed)
-    p = {}
-    for l in (0, 1):
-        for nm in ("wq", "wk", "wv"):
-            p[f"{nm}{l}"] = g.randn(E, E) / np.sqrt(E)
-    p["wc0"], p["bc0"] = g.randn(E, E) / np.sqrt(E), 0.1 * g.randn(E)
-    p["wc1"], p["bc1"] = g.randn(E, V) / np.sqrt(E), 0.1 * g.randn(V)
-    p["wm0"], p["bm0"] = g.randn(V, V) / np.sqrt(V), 0.1 * g.randn(V)
-    p["wm1"], p["bm1"] = g.randn(V, V) / np.sqrt(V), 0.1 * g.randn(V)
-    p["wr"], p["br"] = g.randn(V, 1) / np.sqrt(V), 0.1 * g.randn(1)
-    return {k: torch.tensor(v, dtype=torch.float32) for k, v in p.items()}
 
 
 @pytest.mark.parametrize("E,H", [(48, 8), (24, 8), (48, 2), (96, 1), (40, 5)])
@@ -323,11 +299,8 @@ def test_head_layout_is_exact(E, H):
     ref = dircore.direction_core_torch(tok, params, H)
     out = dircore.direction_core_torch(tok, padded, H)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
-    ref = dircore.direction_core_torch(tok.to(BF16), params, H)
-    out = dircore.direction_core_torch(tok.to(BF16), padded, H)
-    err = (out - ref).abs()
-    assert err.max() <= 1e-2 * ref.abs().max()
-    assert (err / (ref.abs() + 1e-2)).median() <= 1e-3
+    _bf16_gate(dircore.direction_core_torch(tok.to(BF16), padded, H),
+               dircore.direction_core_torch(tok.to(BF16), params, H))
 
 
 @pytest.mark.parametrize("E,H", [(48, 8), (48, 2)])
@@ -370,25 +343,8 @@ def test_etchnet_head_size_6_and_40_neighbours_match_jax():
     size 6) and 40 neighbours at the second U-Net level (past the kernel's
     old 32): the port's forward on the CPU against JAX EtchNet's XLA paths,
     weights converted, with tests/test_torch_model.py's tolerances."""
-    cfg_j = JaxConfig.tiny(**WIDE_KW)
-    jm = JaxEtchNet(cfg=cfg_j)
-    v = jax.jit(lambda r, x: jm.init(r, x, train=False))(
-        jax.random.PRNGKey(2), jnp.zeros((1, N_WIDE, 3)))
-    rng = np.random.RandomState(11)
-    variables = {"params": _perturb(jax.tree_util.tree_map(np.asarray, v["params"]), rng),
-                 "batch_stats": _perturb(jax.tree_util.tree_map(np.asarray, v["batch_stats"]), rng)}
-    skip = variables["params"]["encoder"]["block0_conv0"]["skip_conv"]
-    skip["kernel"], skip["bias"] = np.zeros_like(skip["kernel"]), np.zeros_like(skip["bias"])
-    cfg = EtchConfig.tiny(**WIDE_KW)
-    tm = EtchNet(cfg).eval()
-    tm.load_state_dict(flax_to_state_dict(variables["params"], variables["batch_stats"], cfg))
-    g = np.random.RandomState(6)
-    z, th = g.uniform(-0.9, 0.9, (2, N_WIDE)), g.uniform(0, 2 * np.pi, (2, N_WIDE))
-    r = 0.15 + 0.03 * np.cos(3 * z)
-    pts = np.stack([r * np.cos(th), r * np.sin(th), z], -1).astype(F32)
-    ref = jm.apply(variables, jnp.asarray(pts), train=False)
+    jm, variables, tm = paired_nets(2, 11, **WIDE_KW)
+    pts = capsule(6, 2, N_WIDE)
+    ref = jax_apply(jm, variables, pts, train=False)
     out = tm(torch.from_numpy(pts))
-    for key in ("magnitude", "part_labels", "confidences"):
-        _close(out[key].numpy(), ref[key])
-    err = np.abs(out["direction"].numpy() - np.asarray(ref["direction"]))
-    assert np.quantile(err, 0.99) <= 2e-4 and err.max() <= 1e-2, err.max()
+    _close_forward(out, ref)
