@@ -19,7 +19,10 @@ built at first use).  Phases, each of which raises on failure:
      E = 512 and at E = 1024 with one head, the attention at heads of 256
      and 512, the grouped head at c0 = 256, wider contraction rows, the bf16
      contraction at 66 kernel points, at 12 channels and at 262 neighbours,
-     the vector attention at c = 1024; then the f32 path's FPS, kNN, ball
+     the vector attention at c = 1024; the fused instance norm of the EPN's
+     conv outputs (with and without the skip sum) at B=8, at B=32 for the
+     four published blocks (the benchmark's serving cells) and at B=1; then
+     the f32 path's FPS, kNN, ball
      query, occupancy conv and contraction shapes again at B=1, where
      `cli/infer` and `cli/evaluate` launch them, and kNN at the fit's
      shapes of phase 10 (k=1 between the 6,890 body vertices and the
@@ -36,7 +39,10 @@ built at first use).  Phases, each of which raises on failure:
      direction core, anchor attention, vector attention, grouped head) within
      1e-2 * max|plain| at every element with a median relative error
      |diff| / (|plain| + 1e-2) <= 1e-3 (the same rounding points, another
-     summation order); kernel and plain times side by side with each
+     summation order); the fused instance norm's normalised value within
+     one f32 ulp of its plain twin's at every element and its output equal
+     at 99.9% of them (float64 statistics summed in another order), a
+     constant channel exactly 0; kernel and plain times side by side with each
      kernel's bound (the larger of its bytes over 3.35 TB/s and its
      operations over 989 TFLOP/s of bf16 tensor work, 495 TFLOP/s of TF32
      for the f32 contraction's three passes, or 67 TFLOP/s of FP32, from
@@ -86,7 +92,9 @@ built at first use).  Phases, each of which raises on failure:
      (`make_train_step`, B=8, N=5000, capsule clouds with analytic ground
      truth): a warm step, then TRAIN_TIMED_STEPS timed ones: ms a step, the
      forward / backward / optimizer split, peak memory, each kernel's
-     launches a step, only the f32 kernel set, at shapes phase 3 timed;
+     launches a step, only the f32 training kernel set (the f32 serving set
+     less the fused instance norm, which autograd bypasses), at shapes
+     phase 3 timed;
      and one bf16 train step at N=1024, B=2: finite, only the bf16
      inter-conv kernels and the index kernels; (d) the NaN guard on the card; (e) `python -m etch_tpu_torch.cli.train`
      (its `main`) on the repository's 4D-DRESS sample, two epochs at B=1,
@@ -116,7 +124,7 @@ built at first use).  Phases, each of which raises on failure:
      through host copies); then `cli.train_mixed` at world size 1, one
      epoch over the bundled 4D-DRESS item given twice (a two-part
      ConcatDataset), with and without `--use_dynamic_label_confidence`:
-     its files and the f32 kernel set at shapes phase 3 timed;
+     its files and the f32 training kernel set at shapes phase 3 timed;
  10. the fit's extras (`fit_extras_phase`) on the synthetic body at 6,890
      vertices and a 5,000-point scan off its surface: `fit_smpl` against
      the CPU; `point_mesh_distance` (k=8) and `chamfer_refine`
@@ -137,6 +145,7 @@ before printing either.
 
 import importlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -188,16 +197,18 @@ SAMPLE = ("datafolder/4D-DRESS/data_processed/model", "datafolder/4D-DRESS/data_
 # fused direction core, bf16 with the chunked core (fused_core=False, or one
 # direction layer), and each with the 1-channel conv of C1_MLPS
 PATH_KERNELS = {
-    "f32": ("fps", "knn", "ball_query", "interconv_ones", "interconv_t"),
+    "f32": ("fps", "knn", "ball_query", "interconv_ones", "interconv_t", "instance_norm"),
     "bf16": ("fps", "knn", "ball_query", "interconv_ones_proj", "interconv_t_bf16",
-             "dircore", "vector_attention", "grouped_head"),
+             "dircore", "vector_attention", "grouped_head", "instance_norm"),
     "bf16_chunked": ("fps", "knn", "ball_query", "interconv_ones_proj", "interconv_t_bf16",
-                     "attention", "vector_attention", "grouped_head"),
+                     "attention", "vector_attention", "grouped_head", "instance_norm"),
 }
 PATH_KERNELS["f32_c1"] = PATH_KERNELS["f32"] + ("interconv_t_c1",)
-# a train step launches the inter-conv kernels only (and the index kernels):
-# the f32 set, or with use_bfloat16 the bf16 contraction and the occupancy
-# conv with its projection
+# a train step launches the inter-conv kernels only (and the index kernels),
+# never the fused instance norm, which autograd bypasses: the f32 contraction
+# and occupancy conv, or with use_bfloat16 the bf16 contraction and the
+# occupancy conv with its projection
+PATH_KERNELS["train_f32"] = ("fps", "knn", "ball_query", "interconv_ones", "interconv_t")
 PATH_KERNELS["train_bf16"] = ("fps", "knn", "ball_query", "interconv_ones_proj",
                               "interconv_t_bf16")
 PATH_KERNELS["bf16_chunked_c1"] = PATH_KERNELS["bf16_chunked"] + ("interconv_t_c1",)
@@ -242,6 +253,8 @@ SOURCES = {  # kernel -> (source under etch_tpu_torch/csrc, the TPU kernel it re
     "vector_attention": ("vector_attention.cu",
                          "etch_tpu/nn/pallas_vector_attention.py:109"),
     "grouped_head": ("grouped_head.cu", "etch_tpu/nn/pallas_grouped_head.py:61"),
+    # no TPU kernel: the JAX package leaves its norm (f32 statistics) to XLA
+    "instance_norm": ("instance_norm.cu", "none (XLA: etch_tpu/nn/epn.py:94-100)"),
 }
 
 
@@ -620,6 +633,50 @@ def compare_kernels(torch, dev):
             del feats
         torch.cuda.empty_cache()
         return clouds, epn_pts, specs, nbrs
+
+    def norm_rows(b, shapes):
+        """The fused instance norm at b batch elements of each (points,
+        channels) conv output in `shapes`, without and with the residual:
+        its normalised value within one f32 ulp of the plain twin's at every
+        element, its output equal to the twin's at 99.9% of them; bound:
+        x and the residual read once and the output written once, and the
+        design's own floor (x read twice from device memory) beside it."""
+        from etch_tpu_torch.nn import epn
+        for P, C in shapes:
+            x = torch.randn((b, P, 60, C), device=dev, generator=gen) * 2 + 0.3
+            x[..., 1] = 0.37   # a constant channel, as the first block's skip branch
+            for res in (None, torch.randn((b, P, 60, C), device=dev, generator=gen)):
+                out = epn.norm_act_cuda(x, 0.01, res)
+                ref = epn.norm_act_torch(x, 0.01, res)
+                h = epn.instance_norm_pa(x)
+                lo, hi = (torch.nn.functional.leaky_relu(
+                    torch.nextafter(h, torch.full_like(h, v)), 0.01) for v in (-math.inf, math.inf))
+                act = epn.norm_act_cuda(x, 0.01) if res is not None else out
+                same = (out == ref).float().mean().item()
+                if not (((lo <= act) & (act <= hi)).all() and same >= 0.999
+                        and (act[..., 1] == 0).all()):
+                    raise AssertionError(f"instance_norm B={b} P={P} C={C}: {same:.6f} equal, "
+                                         f"or off by more than one ulp")
+                err = (out - ref).abs().max().item()
+                del h, lo, hi, act, ref
+                n = x.numel()
+                per = 12 if res is not None else 8
+                record("instance_norm", f"B={b} P={P} C={C}{' +residual' if res is not None else ''}",
+                       err, lambda: epn.norm_act_cuda(x, 0.01, res), 5,
+                       cuda_ms(torch, lambda: epn.norm_act_torch(x, 0.01, res), 1),
+                       bound(n * per), extra={"bound_two_reads_ms": bound(n * (per + 4))[0],
+                                              "equal_share": same})
+                del out
+            del x, res
+            torch.cuda.empty_cache()
+
+    # the EPN's conv outputs: two blocks at B=8 (phase 5's requests) and B=1
+    # (cli/infer, cli/evaluate), the four published blocks at B=32 (the
+    # benchmark's serving cells)
+    epn2 = [(2500, 32), (1250, 64)]
+    norm_rows(B, epn2)
+    norm_rows(32, epn2 + [(625, 128), (313, 256)])
+    norm_rows(1, epn2)
 
     xyz = torch.from_numpy(capsule_clouds(B, N, seed=1)).to(dev)
     clouds, epn_pts, specs, nbrs = f32_path_shapes(B, xyz)
@@ -1463,9 +1520,9 @@ def full_width_train(torch, _build, timed_keys):
         h.remove()
     peak = torch.cuda.max_memory_allocated() / 2**30
     ran = {k for k, v in launches.items() if v}
-    if ran != set(PATH_KERNELS["f32"]):
+    if ran != set(PATH_KERNELS["train_f32"]):
         raise AssertionError(f"train step: kernels launched {sorted(ran)}, expected "
-                             f"{sorted(PATH_KERNELS['f32'])}")
+                             f"{sorted(PATH_KERNELS['train_f32'])}")
     untimed = {k: sorted(set(v) - timed_keys[k]) for k, v in shapes.items() if set(v) - timed_keys[k]}
     if untimed:
         raise AssertionError(f"train step: launches at shapes phase 3 did not time: {untimed}")
@@ -1686,7 +1743,7 @@ def data_parallel_phase(torch, _build, timed, tmp):
         files = sorted(os.listdir(out)), os.listdir(os.path.join(out, "checkpoints"))
         if files != (["checkpoints", "log_all", "training_args.json"], ["0.pt"]):
             raise AssertionError(f"cli/train_mixed wrote {files}")
-        if ran != set(PATH_KERNELS["f32"]) or untimed:
+        if ran != set(PATH_KERNELS["train_f32"]) or untimed:
             raise AssertionError(f"cli/train_mixed: kernels {sorted(ran)}, untimed {untimed}")
         if int(state.step) != 2 or not np.isfinite(rows[0]["all_loss"]):
             raise AssertionError(f"cli/train_mixed: {int(state.step)} steps, log {rows}")

@@ -35,7 +35,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # entry point -> argument types (pointers and the stream as c_void_p: a bare
 # Python int would be passed as a 32-bit int and cut the pointer)
 _SIGNATURES = {
@@ -61,13 +61,15 @@ _SIGNATURES = {
     "etch_interconv_t_c1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "etch_interconv_t_c1_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                  _P),
+    "etch_instance_norm": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _D, _P),
+    "etch_instance_norm_residual": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _D, _P),
 }
 
 # Launches per kernel since the last reset_launch_counts().
 launches = {"fps": 0, "knn": 0, "ball_query": 0, "interconv_ones": 0,
             "interconv_t": 0, "interconv_ones_proj": 0, "interconv_t_bf16": 0,
             "interconv_t_c1": 0, "dircore": 0, "attention": 0, "vector_attention": 0,
-            "grouped_head": 0}
+            "grouped_head": 0, "instance_norm": 0}
 # Launches per kernel and shape since the last reset_launch_counts(), and
 # the shape of each kernel's latest launch.
 shape_launches = {name: {} for name in launches}

@@ -26,6 +26,14 @@ bf16 operands with f32 sums and f32 outputs, and the occupancy conv runs
 with its projection fused (`interconv_ones_proj`, bf16 output).  Instance
 norm statistics stay in float64 and the skip conv in f32, as in the JAX
 package (whose skip Dense has no dtype).
+
+Each conv block ends in three norms, each followed by a leaky ReLU, and the
+skip sum (`SeparableSO3ConvBlock.forward`).  `norm_act` runs each as one
+call: on a CUDA tensor that autograd does not record, the hand-written
+kernel `csrc/instance_norm.cu` (norm, activation and sum in one pass over
+the statistics and one over the output, counted in `epn.norm_fused`);
+elsewhere (the CPU, training) `norm_act_torch`, the same ops in plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -35,14 +43,25 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from etch_tpu_torch import _build
 from etch_tpu_torch.geometry.icosahedral import get_anchors, get_intra_idx
 from etch_tpu_torch.geometry.kernel_points import get_kernel_points
 from etch_tpu_torch.nn.bf16 import mm
 from etch_tpu_torch.nn.interconv import interconv_ones, interconv_ones_proj, interconv_t
 from etch_tpu_torch.ops import ball_query, fps, gather_points
+from etch_tpu_torch.utils import trace
+
+# csrc/instance_norm.cu: threads a block (its kThreads); the blocks a pass
+# aims at (8 of 256 threads on each of the H100's 132 SMs) and the fewest
+# rows a thread takes statistics of (both from timings on the H100 at the
+# serving shapes, B = 1, 8 and 32)
+_NORM_THREADS = 256
+_NORM_BLOCKS = 1056
+_NORM_ROWS = 48
+NORM_EPS = 1e-5
 
 
-def instance_norm_pa(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def instance_norm_pa(x: torch.Tensor, eps: float = NORM_EPS) -> torch.Tensor:
     """InstanceNorm over the (point, anchor) axes per channel, no affine
     (torch InstanceNorm2d(C, affine=False) on (B, C, P, A)).
 
@@ -56,6 +75,64 @@ def instance_norm_pa(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mean = x64.mean(dim=(1, 2), keepdim=True)
     var = x64.var(dim=(1, 2), keepdim=True, unbiased=False)
     return ((x64 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def norm_act_torch(x: torch.Tensor, slope: float, residual=None) -> torch.Tensor:
+    """Plain version: leaky_relu(instance_norm_pa(x), slope), plus
+    `residual` (residual + that, the block's skip sum) where given."""
+    y = torch.nn.functional.leaky_relu(instance_norm_pa(x), slope)
+    return y if residual is None else residual + y
+
+
+def norm_splits(B: int, rows: int, C: int, vec: int) -> int:
+    """The row splits a batch element's statistics are taken in, by a launch
+    of csrc/instance_norm.cu on (B, rows, C) in channel groups of `vec`:
+    about _NORM_BLOCKS blocks a pass, with at least _NORM_ROWS rows a
+    thread."""
+    groups = C // vec
+    tile = min(groups, _NORM_THREADS)
+    lanes, tiles = _NORM_THREADS // tile, -(-groups // tile)
+    return max(1, min(-(-_NORM_BLOCKS // (B * tiles)), -(-rows // (lanes * _NORM_ROWS))))
+
+
+def norm_act_cuda(x: torch.Tensor, slope: float, residual=None) -> torch.Tensor:
+    """Kernel launch: `norm_act_torch` on x (B, P, A, C) f32 CUDA, any C >= 1
+    and P * A >= 1; residual, where given, f32 of x's shape on its device;
+    all contiguous."""
+    pairs = [(x, torch.float32)] + ([] if residual is None else [(residual, torch.float32)])
+    device = _build.check_cuda("instance_norm", *pairs)
+    if x.dim() != 4 or x.numel() == 0:
+        raise ValueError(f"instance_norm: x must be a non-empty (B, P, A, C), got "
+                         f"{tuple(x.shape)}")
+    if residual is not None and residual.shape != x.shape:
+        raise ValueError(f"instance_norm: residual {tuple(residual.shape)} vs x "
+                         f"{tuple(x.shape)}")
+    B, P, A, C = x.shape
+    rows = P * A
+    out = torch.empty_like(x)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, out, residual) if t is not None)
+    vec = 4 if C % 4 == 0 and aligned else 1
+    splits = norm_splits(B, rows, C, vec)
+    scratch = torch.empty(B * (3 * splits + 2) * C, dtype=torch.float64, device=device)
+    trace.count("epn.norm_fused")
+    sizes = (B, rows, C, vec, splits, float(slope), NORM_EPS)
+    if residual is None:
+        _build.launch("instance_norm", "etch_instance_norm", device, _build.ptr(x),
+                      _build.ptr(out), _build.ptr(scratch), *sizes)
+    else:
+        _build.launch("instance_norm", "etch_instance_norm_residual", device, _build.ptr(x),
+                      _build.ptr(residual), _build.ptr(out), _build.ptr(scratch), *sizes)
+    return out
+
+
+def norm_act(x: torch.Tensor, slope: float, residual=None) -> torch.Tensor:
+    """leaky_relu(instance_norm_pa(x), slope) [+ residual]: the kernel on a
+    CUDA tensor that autograd does not record, the plain version elsewhere."""
+    recorded = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, residual))
+    if x.is_cuda and not recorded:
+        return norm_act_cuda(x, slope, residual)
+    return norm_act_torch(x, slope, residual)
 
 
 class InterSO3Conv(nn.Module):
@@ -166,15 +243,16 @@ class SeparableSO3ConvBlock(nn.Module):
         self.skip_conv = nn.Linear(spec["dim_in"], spec["dim_out"])
 
     def forward(self, xyz: torch.Tensor, feats: torch.Tensor):
-        act = lambda h: torch.nn.functional.leaky_relu(h, self.negative_slope)
+        slope = self.negative_slope
         new_xyz, x, sample_idx = self.inter(xyz, feats)
-        h = act(instance_norm_pa(x))
-        h = act(instance_norm_pa(self.intra(h)))
+        h = norm_act(x, slope)
+        h = norm_act(self.intra(h), slope)
         skip = feats
         if self.stride > 1:
             skip = gather_points(skip, sample_idx)
-        skip = act(instance_norm_pa(self.skip_conv(skip)))
-        return new_xyz, h + skip
+        # h + leaky_relu(norm(skip_conv(skip))): the skip branch's norm takes h
+        # as its residual
+        return new_xyz, norm_act(self.skip_conv(skip), slope, residual=h)
 
 
 class EPNBackbone(nn.Module):

@@ -39,7 +39,7 @@ SPAN_NAMES = (
     "net.encoder", "net.propagate", "net.confidence", "net.direction", "net.magnitude")
 COUNTER_NAMES = ("fit.lm_iterations", "fit.lm.graph_captures", "fit.lm.graph_replays",
                  "step.skipped_updates", "dircore.wide_points", "interconv.slices",
-                 "bf16.tc_products")
+                 "bf16.tc_products", "epn.norm_fused")
 
 _NULL = contextlib.nullcontext()
 _lock = threading.Lock()

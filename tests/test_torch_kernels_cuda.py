@@ -13,9 +13,13 @@ also with a float64 plain version).  The bf16 kernels round at the
 same points as their plain versions and differ in summation order only,
 which can move a value across a bf16 rounding boundary now and then:
 max |kernel - plain| <= 1e-2 * max|plain| and a median relative error
-(|diff| / (|plain| + 1e-2)) <= 1e-3."""
+(|diff| / (|plain| + 1e-2)) <= 1e-3.  The fused instance norm takes its
+float64 statistics in another summation order than its plain twin and
+rounds once to f32: within one f32 ulp of the twin at every element, and
+equal at 99.9% of them."""
 
 import importlib
+import math
 
 import numpy as np
 import pytest
@@ -25,7 +29,7 @@ from etch_tpu_torch import _build
 from etch_tpu_torch.geometry.icosahedral import get_anchors
 from etch_tpu_torch.geometry.kernel_points import get_kernel_points
 from etch_tpu_torch.models.etch_net import DirectionHead, init_params
-from etch_tpu_torch.nn import attention, dircore, grouped_head, interconv, vector_attention
+from etch_tpu_torch.nn import attention, dircore, epn, grouped_head, interconv, vector_attention
 from etch_tpu_torch.ops.grouping import gather_points
 
 # the modules themselves: etch_tpu_torch.ops re-exports same-named functions
@@ -1097,3 +1101,107 @@ def test_repaired_widths_9_serve_on_the_card(cuda, variant):
     cfg = chip_smoke.deep_config(chip_smoke.REPAIRED_9 if overrides is None else overrides)
     chip_smoke.small_step(torch, _build, variant, cfg, route, full_width=True,
                           seeds=chip_smoke.REPAIRED_SEEDS)
+
+
+# the EPN's conv outputs (P points, C channels) at its four published blocks,
+# and a ragged one
+NORM_SHAPES = [(2500, 32), (1250, 64), (625, 128), (313, 256), (313, 12)]
+
+
+def _norm_inputs(dev, B, P, C, seed, offset=0):
+    """x (B, P, 60, C) f32 with channel 1 constant (where C > 1), as the
+    first block's skip branch is, and a residual of the same shape; x
+    starts `offset` floats into its storage."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = B * P * 60 * C
+    x = (torch.randn(n + offset, device=dev, generator=g) * 3 + 0.5)[offset:].view(B, P, 60, C)
+    if C > 1:
+        x[..., 1] = 0.37
+    r = torch.randn((B, P, 60, C), device=dev, generator=g)
+    return x, r
+
+
+def _check_norm(x, r, residual):
+    """The kernel against its plain twin: its normalised value within one
+    f32 ulp of the twin's at every element (the activation, monotone, lies
+    between the twin's activations of the twin's two f32 neighbours), and
+    the output equal at 99.9% of the elements; with the residual, bit for
+    bit the kernel's own activation plus the residual; the constant channel
+    exactly 0 before the residual; two launches the same bits; one launch a
+    call."""
+    before = _build.launches["instance_norm"]
+    act = epn.norm_act_cuda(x, 0.01)
+    out = epn.norm_act_cuda(x, 0.01, r) if residual else act
+    assert _build.launches["instance_norm"] == before + 1 + residual
+    h = epn.instance_norm_pa(x)
+    lo, hi = (torch.nn.functional.leaky_relu(torch.nextafter(h, torch.full_like(h, v)), 0.01)
+              for v in (-math.inf, math.inf))
+    assert ((lo <= act) & (act <= hi)).all()
+    want = epn.norm_act_torch(x, 0.01, r) if residual else epn.norm_act_torch(x, 0.01)
+    same = (out == want).float().mean().item()
+    assert same >= 0.999, same
+    if residual:
+        assert torch.equal(out, r + act)
+    if x.shape[-1] > 1:
+        assert (act[..., 1] == 0).all()
+    again = epn.norm_act_cuda(x, 0.01, r if residual else None)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["act", "act_residual"])
+@pytest.mark.parametrize("P,C", NORM_SHAPES)
+def test_instance_norm_kernel(cuda, P, C, residual):
+    x, r = _norm_inputs(cuda, 2, P, C, seed=P + C)
+    _check_norm(x, r, residual)
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["act", "act_residual"])
+@pytest.mark.parametrize("P,C,offset", [(40, 1, 0), (40, 5, 0), (40, 1027, 0), (40, 32, 1)],
+                         ids=["C1", "C5", "C1027", "C32_unaligned"])
+def test_instance_norm_kernel_scalar_and_wide_rows(cuda, P, C, offset, residual):
+    """Channel counts off the 16-byte grain (one channel a thread), above
+    256 groups a row (channel tiles), and x off 16-byte alignment."""
+    x, r = _norm_inputs(cuda, 3, P, C, seed=C, offset=offset)
+    _check_norm(x, r, residual)
+
+
+def test_instance_norm_under_autograd_launches_nothing(cuda):
+    """An input autograd records runs the plain twin: no launch, no count,
+    and a gradient."""
+    from etch_tpu_torch.utils import trace
+    x, r = _norm_inputs(cuda, 2, 40, 32, seed=3)
+    x.requires_grad_(True)
+    before = _build.launches["instance_norm"]
+    trace.drain()
+    trace.enable()
+    try:
+        out = epn.norm_act(x, 0.01, r)
+    finally:
+        trace.disable()
+    assert _build.launches["instance_norm"] == before
+    assert "epn.norm_fused" not in trace.drain()[1]
+    assert torch.equal(out, epn.norm_act_torch(x, 0.01, r))
+    out.sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    with torch.no_grad():
+        trace.enable()
+        try:
+            epn.norm_act(x, 0.01, r)
+        finally:
+            trace.disable()
+    assert _build.launches["instance_norm"] == before + 1
+    assert trace.drain()[1] == {"epn.norm_fused": 1}
+
+
+def test_instance_norm_refuses_bad_inputs(cuda):
+    x, r = _norm_inputs(cuda, 2, 8, 16, seed=4)
+    with pytest.raises(TypeError):
+        epn.norm_act_cuda(x.double(), 0.01)
+    with pytest.raises(ValueError, match="contiguous"):
+        epn.norm_act_cuda(x.transpose(1, 2), 0.01)
+    with pytest.raises(ValueError):
+        epn.norm_act_cuda(x, 0.01, r.cpu())
+    with pytest.raises(ValueError, match="residual"):
+        epn.norm_act_cuda(x, 0.01, r[:1].contiguous())
+    with pytest.raises(ValueError):
+        epn.norm_act_cuda(x.reshape(2, 8 * 60, 16), 0.01)

@@ -17,8 +17,9 @@ innermost benchmark range, as `perfbench/trace.py::Profile` labels it, and
 by the innermost program span; idle gaps by the innermost range of either
 set.  The numbers the program's spans give (`METRICS`: among them the
 device ms a batch of each `net.*` span of the forward, and the points the
-wide direction core served, the contractions' 64-channel slices and the
-bf16 tensor-core products a batch) sit beside the benchmark's own reading
+wide direction core served, the contractions' 64-channel slices, the
+bf16 tensor-core products and the EPN's fused norm calls a batch; the
+fused norm calls a step in training, where none run) sit beside the benchmark's own reading
 of the same batch, and beside the offset of each span's in-memory start
 from its profiler range's (the two clocks).
 Prints the card's name and power limit, then one JSON line a seed, and
@@ -212,6 +213,7 @@ METRICS = {"serve.lm_ms": ("fit.lm0", "fit.lm1"),
            "dircore.wide_points": ("dircore.wide_points",),
            "interconv.slices": ("interconv.slices",),
            "bf16.tc_products": ("bf16.tc_products",),
+           "epn.norm_fused": ("epn.norm_fused",),
            "train.interconv_backward_ms": ("interconv.backward",),
            "train.skipped_updates": ("step.skipped_updates",)}
 
@@ -352,14 +354,16 @@ def measure(cell_name, seed, seconds, device="cuda"):
                           "dircore.wide_points": per_call(p_counts, "dircore.wide_points",
                                                           calls),
                           "interconv.slices": per_call(p_counts, "interconv.slices", calls),
-                          "bf16.tc_products": per_call(p_counts, "bf16.tc_products", calls)}
+                          "bf16.tc_products": per_call(p_counts, "bf16.tc_products", calls),
+                          "epn.norm_fused": per_call(p_counts, "epn.norm_fused", calls)}
         fit_idle = sum(v for (b, _), v in red["gap_pairs"].items() if b == "serve.fit")
         named = sum(v for (b, p), v in red["gap_pairs"].items()
                     if b == "serve.fit" and p in FIT_IDLE)
         out["serve_fit_idle_named_share"] = named / fit_idle if fit_idle else None
     else:
         out["metrics"] = {"train.interconv_backward_ms": interconv_backward_ms(red, calls),
-                          "train.skipped_updates": counts.get("step.skipped_updates", 0)}
+                          "train.skipped_updates": counts.get("step.skipped_updates", 0),
+                          "epn.norm_fused": per_call(p_counts, "epn.norm_fused", calls)}
     return out
 
 
