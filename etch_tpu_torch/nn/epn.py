@@ -257,21 +257,26 @@ class SeparableSO3ConvBlock(nn.Module):
 
 class EPNBackbone(nn.Module):
     """Stack of separable SO(3) conv blocks driven by `backbone_plan`
-    (reference so3net.py:10-33, 36-152)."""
+    (reference so3net.py:10-33, 36-152).  With `utils/trace.py` on, each
+    block's forward (its convs) runs inside the span `epn.block<i>`."""
 
     def __init__(self, plan, compute_dtype=None):
         super().__init__()
-        self.names = []
+        self.names, self.blocks = [], []
         for bi, block in enumerate(plan):
+            self.blocks.append([])
             for ci, spec in enumerate(block):
                 name = f"block{bi}_conv{ci}"
                 self.add_module(name, SeparableSO3ConvBlock(spec, compute_dtype))
                 self.names.append(name)
+                self.blocks[bi].append(name)
 
     def forward(self, xyz: torch.Tensor):
         """xyz (B, P, 3) -> (xyz', feats (B, P', 60, C_last))."""
         B, P, _ = xyz.shape
         feats = torch.ones((B, P, 60, 1), dtype=xyz.dtype, device=xyz.device)
-        for name in self.names:
-            xyz, feats = getattr(self, name)(xyz, feats)
+        for bi, names in enumerate(self.blocks):
+            with trace.span(f"epn.block{bi}"):
+                for name in names:
+                    xyz, feats = getattr(self, name)(xyz, feats)
         return xyz, feats

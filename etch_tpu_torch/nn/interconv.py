@@ -35,7 +35,10 @@ version on the CPU); the backward recomputes the plain twin under
 `torch.enable_grad()` and takes its autograd, as the JAX package's custom
 VJPs run the XLA reference, never Pallas
 (`etch_tpu/nn/pallas_interconv.py:355-371`, `:408-412`).  Gradients flow to
-xyz, centers, feats and the projection w; nbr and rk get none.  float64
+xyz, centers, feats and the projection w; nbr and rk get none.  With
+`utils/trace.py` on, each such backward of `InterconvT` on rows wider than
+64 channels (the 128- and 256-channel blocks of `epn_layer_num` 3 and 4)
+adds one to the host counter `interconv.backward_wide`.  float64
 operands (the gradient checks) skip the bf16 rounding of the occupancy
 projection: the function there is the unrounded one.
 """
@@ -318,6 +321,8 @@ class InterconvT(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         xyz, centers, feats, nbr, rk = ctx.saved_tensors
+        if feats.shape[-1] > _SLICE * ctx.A and any(ctx.needs_input_grad[:3]):
+            trace.count("interconv.backward_wide")
         plain = _contraction(feats, ctx.A, False)
         grads = _plain_grads(ctx, g, lambda x, ct, f: plain(x, ct, nbr, f, rk, ctx.sigma, ctx.A),
                              (xyz, centers, feats))

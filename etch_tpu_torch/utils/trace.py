@@ -36,10 +36,11 @@ SPAN_NAMES = (
     "fit.lm.jacobian", "fit.lm.solve", "fit.smpl",
     "step", "step.loss", "step.backward", "step.allreduce", "step.adam", "step.guard",
     "interconv.backward",
-    "net.encoder", "net.propagate", "net.confidence", "net.direction", "net.magnitude")
+    "net.encoder", "net.propagate", "net.confidence", "net.direction", "net.magnitude",
+    "epn.block0", "epn.block1", "epn.block2", "epn.block3")
 COUNTER_NAMES = ("fit.lm_iterations", "fit.lm.graph_captures", "fit.lm.graph_replays",
                  "step.skipped_updates", "dircore.wide_points", "interconv.slices",
-                 "bf16.tc_products", "epn.norm_fused")
+                 "bf16.tc_products", "epn.norm_fused", "interconv.backward_wide")
 
 _NULL = contextlib.nullcontext()
 _lock = threading.Lock()

@@ -1,8 +1,8 @@
 """EtchNet at EPN's four published blocks (`--EPN_layer_num 4`, mlps 32, 64,
 128, 256) against the benchmark's plain reference (`perfbench/reference/`),
 the configuration file the benchmark serves it by, the two per-layer readers
-of its cell, and the forward's spans and the wrappers' counters
-(`utils/trace.py`).
+of its cell, and the forward's spans (the network's and, inside the
+encoder, each EPN block's) and the wrappers' counters (`utils/trace.py`).
 
 On the CPU the port runs its plain versions, which the reference is a
 frozen copy of: in f32 the two agree to f32 summation order (rtol 1e-5,
@@ -45,6 +45,7 @@ CELL = "etch-epn4-bf16.serve-b32"
 CONFIG = ROOT / "perfbench" / "configs" / "etch-epn4-bf16.json"
 OUTPUTS = ("direction", "magnitude", "part_labels", "confidences")
 NET_SPANS = ("net.encoder", "net.propagate", "net.confidence", "net.direction", "net.magnitude")
+EPN_SPANS = ("epn.block0", "epn.block1", "epn.block2", "epn.block3")
 # f32 against the reference: the same plain operations, sums in the same or
 # another f32 order
 F32_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -294,11 +295,13 @@ def test_forward_spans_recorded_in_order(small_model):
         model(pts)
     trace.disable()
     spans, counts = trace.drain()
-    assert [s[0] for s in spans] == ["pipeline.run_batch", *NET_SPANS]
-    assert all(s[2] == 0 and s[1] == spans[0][1] for s in spans[1:])
+    assert [s[0] for s in spans] == ["pipeline.run_batch", NET_SPANS[0], *EPN_SPANS,
+                                     *NET_SPANS[1:]]
+    assert all(s[2] == (1 if s[0] in EPN_SPANS else 0) and s[1] == spans[0][1]
+               for s in spans[1:])
     assert all(s[3] <= s[4] for s in spans)
     assert counts == {}     # the plain versions on the CPU: no wrapper counted
-    assert set(NET_SPANS) <= set(trace.SPAN_NAMES)
+    assert set(NET_SPANS + EPN_SPANS) <= set(trace.SPAN_NAMES)
 
 
 def test_forward_off_records_nothing_and_opens_no_range(small_model, monkeypatch):

@@ -23,6 +23,9 @@ SERVE_KW = dict(num_point=N, batch_size=B, fit_steps_stage0=STEPS0, fit_steps_st
 TRAIN_N = 128
 TRAIN_KW = dict(num_point=TRAIN_N, batch_size=B, unet_blocks=(1, 2, 1, 1, 2), dir_num_layers=2,
                 unet_strides=(1, 2, 2, 2, 2))
+# two convs reading 72-channel rows (block1's), each in one 512-centre chunk
+WIDE_KW = dict(TRAIN_KW, epn_mlps=((8, 72), (72, 8)))
+EPN_SPANS = ("epn.block0", "epn.block1", "epn.block2", "epn.block3")
 
 
 @pytest.fixture(autouse=True)
@@ -44,10 +47,10 @@ def _batch(seed):
     return scaled_batch(seed, B, TRAIN_N)
 
 
-def _train(steps):
+def _train(steps, **kw):
     """A fresh tiny train state (seeded weights) and the given batches'
     steps: (model, losses of each step)."""
-    cfg = EtchConfig.tiny(**TRAIN_KW)
+    cfg = EtchConfig.tiny(**{**TRAIN_KW, **kw})
     model, state, opt = create_train_state(cfg, seed=1, device="cpu")
     step = make_train_step(model, opt, cfg)
     losses = []
@@ -126,6 +129,7 @@ def test_run_batch_span_tree(pipe):
                                           "fit.lm1", "fit.smpl"]
     assert kids["pipeline.predict"] == ["net.encoder", "net.propagate", "net.confidence",
                                         "net.direction", "net.magnitude"]
+    assert kids["net.encoder"] == ["epn.block0", "epn.block1"]
     assert kids["fit.lm0"] == ["fit.lm.jacobian", "fit.lm.solve"] * STEPS0
     assert kids["fit.lm1"] == ["fit.lm.jacobian", "fit.lm.solve"] * STEPS1
     assert counts == {"fit.lm_iterations": STEPS0 + STEPS1}
@@ -161,9 +165,35 @@ def test_train_step_span_tree():
     assert kids["step"] == ["net.encoder", "net.propagate", "net.confidence", "net.direction",
                             "net.magnitude", "step.loss", "step.backward", "step.guard",
                             "step.adam", "step.guard"]
+    assert kids["net.encoder"] == ["epn.block0", "epn.block1"]
     assert set(kids["step.backward"]) == {"interconv.backward"}
     assert counts == {"step.skipped_updates": 0}
     assert {s[0] for s in spans} <= set(trace.SPAN_NAMES)
+
+
+def test_epn_block_spans_and_wide_backward_counter(monkeypatch):
+    """Off, a step with a 72-channel conv opens no range and counts nothing;
+    on, each EPN block's forward is a span under `net.encoder`, and the
+    inter-conv backward on rows wider than 64 channels counts once a chunk,
+    on the autograd thread as on the calling one."""
+    batches = [_batch(0), _batch(1)]
+    with monkeypatch.context() as m:
+        m.setattr(torch.profiler, "record_function", _raise)
+        _train(batches[:1], epn_mlps=WIDE_KW["epn_mlps"])
+    assert trace.drain() == ([], {})
+    trace.enable()
+    _train(batches, epn_mlps=WIDE_KW["epn_mlps"])
+    trace.disable()
+    spans, counts = trace.drain()
+    encoders = [i for i, s in enumerate(spans) if s[0] == "net.encoder"]
+    blocks = [s for s in spans if s[0].startswith("epn.")]
+    assert [(s[0], s[2]) for s in blocks] == [("epn.block0", encoders[0]),
+                                              ("epn.block1", encoders[0]),
+                                              ("epn.block0", encoders[1]),
+                                              ("epn.block1", encoders[1])]
+    assert counts["interconv.backward_wide"] == 2 * 2
+    assert set(EPN_SPANS) <= set(trace.SPAN_NAMES)
+    assert "interconv.backward_wide" in trace.COUNTER_NAMES
 
 
 def test_skipped_updates_counts_the_guard():
@@ -342,7 +372,10 @@ def test_metrics_on_the_reduction():
     assert report.net_ms(red, 2) == {"net.encoder": 15.0, "net.propagate": None,
                                      "net.confidence": None, "net.direction": 40.0,
                                      "net.magnitude": None}
-    counts = {"dircore.wide_points": 320000, "interconv.slices": 20, "bf16.tc_products": 28}
+    assert report.epn_block_ms(red, 1) == dict.fromkeys(EPN_SPANS)
+    counts = {"dircore.wide_points": 320000, "interconv.slices": 20, "bf16.tc_products": 28,
+              "interconv.backward_wide": 8}
+    assert report.per_call(counts, "interconv.backward_wide", 2) == 4
     assert report.per_call(counts, "dircore.wide_points", 2) == 160000
     assert report.per_call(counts, "interconv.slices", 2) == 10
     assert report.per_call(counts, "bf16.tc_products", 2) == 14
@@ -384,3 +417,17 @@ def test_net_spans_label_the_forward_kernels():
     assert red["kernel_s"]["net.encoder"] == pytest.approx(100e-9)
     assert report.net_ms(red, 1)["net.encoder"] == pytest.approx(100e-6)
     assert report.net_ms(red, 1)["net.direction"] is None
+
+
+def test_epn_block_spans_label_the_encoder_kernels():
+    """Kernels launched inside an `epn.block*` span count to the block, and
+    `net_ms` still reads them as the encoder's."""
+    net = [Ev("net.encoder", "CPU", 5, 100), Ev("epn.block0", "CPU", 6, 60),
+           Ev("net.direction", "CPU", 150, 280)]
+    red = report.reduce_events(BENCH + PROGRAM + net, report.SERVE_RANGES)
+    assert red["launches"]["epn.block0"] == 1 and "net.encoder" not in red["launches"]
+    blocks = report.epn_block_ms(red, 1)
+    assert blocks["epn.block0"] == pytest.approx(100e-6)
+    assert [blocks[n] for n in EPN_SPANS[1:]] == [None] * 3
+    assert report.net_ms(red, 1)["net.encoder"] == pytest.approx(100e-6)
+    assert report.EPN_SPANS == EPN_SPANS

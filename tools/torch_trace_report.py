@@ -19,7 +19,10 @@ set.  The numbers the program's spans give (`METRICS`: among them the
 device ms a batch of each `net.*` span of the forward, and the points the
 wide direction core served, the contractions' 64-channel slices, the
 bf16 tensor-core products and the EPN's fused norm calls a batch; the
-fused norm calls a step in training, where none run) sit beside the benchmark's own reading
+fused norm calls a step in training, where none run; in both, the device ms
+of each EPN block's `epn.block<i>` span and the inter-conv backwards on
+rows wider than 64 channels, `interconv.backward_wide`, which only a train
+step runs) sit beside the benchmark's own reading
 of the same batch, and beside the offset of each span's in-memory start
 from its profiler range's (the two clocks).
 Prints the card's name and power limit, then one JSON line a seed, and
@@ -48,6 +51,7 @@ SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize
 LAUNCH = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch")
 FIT_IDLE = ("fit.lm.jacobian", "fit.lm.solve", "fit.markers", "fit.smpl", "pipeline.predict")
 NET_SPANS = tuple(n for n in trace.SPAN_NAMES if n.startswith("net."))
+EPN_SPANS = tuple(n for n in trace.SPAN_NAMES if n.startswith("epn."))
 
 
 def _ns(e, which):
@@ -195,11 +199,25 @@ def interconv_backward_ms(red, calls):
     return s * 1e3 / calls if s else None
 
 
+def _span_ms(red, calls, names):
+    return {n: red["kernel_s"][n] * 1e3 / calls if red["kernel_s"].get(n) else None
+            for n in names}
+
+
 def net_ms(red, calls):
     """Device ms a batch of the kernels launched inside each `net.*` span of
-    the network forward (None for a span that launched none)."""
-    return {n: red["kernel_s"][n] * 1e3 / calls if red["kernel_s"].get(n) else None
-            for n in NET_SPANS}
+    the network forward (None for a span that launched none); the encoder's
+    holds those of the `epn.block*` spans inside it."""
+    kernel_s = dict(red["kernel_s"])
+    kernel_s["net.encoder"] = sum(kernel_s.get(n, 0.0) for n in ("net.encoder",) + EPN_SPANS)
+    return _span_ms({"kernel_s": kernel_s}, calls, NET_SPANS)
+
+
+def epn_block_ms(red, calls):
+    """Device ms a batch or step of the kernels launched inside each EPN
+    block's forward (`epn.block<i>`; None for a block that launched none or
+    that the network does not have)."""
+    return _span_ms(red, calls, EPN_SPANS)
 
 
 METRICS = {"serve.lm_ms": ("fit.lm0", "fit.lm1"),
@@ -210,6 +228,8 @@ METRICS = {"serve.lm_ms": ("fit.lm0", "fit.lm1"),
            "fit.lm.graph_replays": ("fit.lm.graph_replays",),
            "fit.lm.graph_captures": ("fit.lm.graph_captures",),
            "serve.net_ms": NET_SPANS,
+           "epn.block_ms": EPN_SPANS,
+           "interconv.backward_wide": ("interconv.backward_wide",),
            "dircore.wide_points": ("dircore.wide_points",),
            "interconv.slices": ("interconv.slices",),
            "bf16.tc_products": ("bf16.tc_products",),
@@ -355,7 +375,10 @@ def measure(cell_name, seed, seconds, device="cuda"):
                                                           calls),
                           "interconv.slices": per_call(p_counts, "interconv.slices", calls),
                           "bf16.tc_products": per_call(p_counts, "bf16.tc_products", calls),
-                          "epn.norm_fused": per_call(p_counts, "epn.norm_fused", calls)}
+                          "epn.norm_fused": per_call(p_counts, "epn.norm_fused", calls),
+                          "epn.block_ms": epn_block_ms(red, calls),
+                          "interconv.backward_wide": per_call(p_counts, "interconv.backward_wide",
+                                                              calls)}
         fit_idle = sum(v for (b, _), v in red["gap_pairs"].items() if b == "serve.fit")
         named = sum(v for (b, p), v in red["gap_pairs"].items()
                     if b == "serve.fit" and p in FIT_IDLE)
@@ -363,7 +386,10 @@ def measure(cell_name, seed, seconds, device="cuda"):
     else:
         out["metrics"] = {"train.interconv_backward_ms": interconv_backward_ms(red, calls),
                           "train.skipped_updates": counts.get("step.skipped_updates", 0),
-                          "epn.norm_fused": per_call(p_counts, "epn.norm_fused", calls)}
+                          "epn.norm_fused": per_call(p_counts, "epn.norm_fused", calls),
+                          "epn.block_ms": epn_block_ms(red, calls),
+                          "interconv.backward_wide": per_call(p_counts, "interconv.backward_wide",
+                                                              calls)}
     return out
 
 
